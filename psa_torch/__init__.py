@@ -1,0 +1,18 @@
+"""psa_torch — the mutant-alignment search engine on PyTorch and CUDA.
+
+The PyTorch/CUDA counterpart of `psa_tpu`, module for module: the same
+winner tuple (offset, char_offset, substitute, score) and the same output
+bytes for every query.  The offset sweep runs in a CUDA kernel written for
+Hopper (csrc/sweep.cu); everything around it is plain torch on the card and
+numpy on the host.  The package imports neither JAX nor `psa_tpu`.
+
+Entry points run on the card unless the caller asks for the CPU
+(`device="cpu"`); with no GPU present they raise instead of running on the
+host.
+"""
+
+from psa_torch.core.result import NoMutationFound, SearchResult
+from psa_torch.models.search import AlignmentSearchEngine, search
+
+__all__ = ["AlignmentSearchEngine", "NoMutationFound", "SearchResult",
+           "search"]

@@ -1,0 +1,155 @@
+"""Command-line entry point: `psa-torch input.txt -o output.txt`.
+
+Replaces the reference's main.c + orchestrator (main.c:13-56,
+cpu_funcs.c:25-121) for one query: read input, search, write output, print
+the wall time.  Same output bytes and exit codes as the JAX package's `psa`
+single-query mode: 0 found, 1 no mutation (the unmodified Seq2 is written
+with offset -1), 2 bad usage or input.  Runs on the card unless
+`--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from psa_torch.config import CONFIG
+
+    p = argparse.ArgumentParser(
+        prog="psa-torch",
+        description="mutant-alignment search on PyTorch/CUDA "
+                    "(best single-substitution alignment of Seq2 under Seq1)",
+    )
+    p.add_argument("input", nargs="?", default=CONFIG.default_input,
+                   help="input file: 4 weights, Seq1, Seq2, maximum|minimum "
+                        "(default ./input.txt, like the reference def.h:20)")
+    p.add_argument("-o", "--output", default=CONFIG.default_output,
+                   help="output file (default ./output.txt)")
+    p.add_argument("--backend", default="torch", choices=["torch", "numpy"],
+                   help="compute path: torch = the CUDA sweep kernel and "
+                        "device epilogue; numpy = the host oracle")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="device of the torch backend (cpu runs the kernel's "
+                        "plain PyTorch version)")
+    p.add_argument("--explain", action="store_true",
+                   help="render the winning alignment with signs and the "
+                        "mutation highlighted (reference pretty_print)")
+    p.add_argument("--lenient", action="store_true",
+                   help="accept characters outside A-Z/'-' (treated as "
+                        "score-0, non-substitutable, like the reference's "
+                        "defined out-of-range behavior)")
+    p.add_argument("--print-table", action="store_true",
+                   help="print the 27x27 sign matrix (reference print_hash)")
+    p.add_argument("--case", type=int, default=None, metavar="N",
+                   help="run the N-th embedded case record of a scratchpad "
+                        "input file (N=0 is the record the reference itself "
+                        "would run)")
+    p.add_argument("--json", action="store_true",
+                   help="print one JSON object to stdout (offset, char "
+                        "position, substitute, score, mutant, time) instead "
+                        "of the reference-style time trailer; the output "
+                        "file is still written")
+    p.add_argument("--quiet", action="store_true", help="suppress progress prints")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from psa_torch.core.result import NoMutationFound
+    from psa_torch.models.search import AlignmentSearchEngine
+    from psa_torch.utils.io import read_cases, read_input, write_output
+
+    if args.print_table:
+        from psa_torch.utils.pretty import render_sign_table
+
+        print(render_sign_table())
+
+    try:
+        if args.case is not None:
+            cases = read_cases(args.input)
+            if not 0 <= args.case < len(cases):
+                print(f"error: --case {args.case} out of range "
+                      f"(file has {len(cases)} cases)", file=sys.stderr)
+                return 2
+            query = cases[args.case]
+        else:
+            query = read_input(args.input)
+    except FileNotFoundError:
+        print(f"error: cannot open input file `{args.input}`", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"error: bad input file `{args.input}`: {e}", file=sys.stderr)
+        return 2
+    try:
+        # device None = the card, which raises when there is none
+        engine = AlignmentSearchEngine(
+            query.weights, query.is_max, backend=args.backend,
+            strict_alphabet=not args.lenient,
+            device=None if args.device == "cuda" else args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    t0 = time.perf_counter()
+    try:
+        res = engine.search(query.seq1, query.seq2)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except NoMutationFound:
+        elapsed = time.perf_counter() - t0
+        # Defined behavior where the reference has UB: report explicitly,
+        # write the unmodified Seq2 with offset -1.
+        print("There are no mutations found", file=sys.stderr)
+        write_output(args.output, query.seq2, -1,
+                     float("-inf") if query.is_max else float("inf"))
+        if args.json:
+            print(_result_json(query, None, elapsed))
+        elif not args.quiet:
+            print("total time: %g" % elapsed)
+        return 1
+    elapsed = time.perf_counter() - t0
+
+    mutant = res.mutant(query.seq2)
+    write_output(args.output, mutant, res.offset, res.score)
+    if args.explain:
+        from psa_torch.utils.pretty import pretty_print
+
+        pretty_print(query, res)
+    if args.json:
+        print(_result_json(query, res, elapsed))
+    elif not args.quiet:
+        # same trailer the reference prints (main.c:46-47)
+        print("total time: %g" % elapsed)
+    return 0
+
+
+def _result_json(query, res, elapsed: float | None = None) -> str:
+    """One machine-readable result object (None result = no mutation)."""
+    obj: dict = {"mutation_found": res is not None}
+    if res is not None:
+        obj.update(offset=res.offset, char_offset=res.char_offset,
+                   substitute=res.sub_char, score=res.score,
+                   mutant=res.mutant(query.seq2))
+    else:
+        obj.update(offset=-1, score=(float("-inf") if query.is_max
+                                     else float("inf")),
+                   mutant=query.seq2)
+    if elapsed is not None:
+        obj["time_s"] = elapsed
+    # json can't carry inf: mirror C printf's 'inf' string for the UB-path
+    # score (the %g writer prints 'inf' there too)
+    if not np.isfinite(obj["score"]):
+        obj["score"] = "%g" % obj["score"]
+    return json.dumps(obj)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,73 @@
+"""The port stands alone: no JAX and nothing of psa_tpu in psa_torch or
+chip_smoke.py, entry points that refuse to run on the CPU unless asked, and
+a kernel wrapper that counts only real launches."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from psa_torch.core.tables import build_tables
+from psa_torch.models import search as search_mod
+from psa_torch.ops import sweep as sw
+from psa_torch.utils import cli
+
+ROOT = Path(__file__).resolve().parent.parent
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|psa_tpu)\b", re.M)
+
+
+def test_import_leaves_no_jax_or_psa_tpu():
+    code = ("import sys, psa_torch, psa_torch.utils.cli, psa_torch.models.batch, "
+            "psa_torch.utils.pretty, psa_torch.utils.generator; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'psa_tpu')); print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_static_scan_finds_no_jax_or_psa_tpu_import():
+    files = sorted(f for f in (ROOT / "psa_torch").rglob("*.py")
+                   if "_build" not in f.relative_to(ROOT).parts)
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if _IMPORT.search(f.read_text())]
+    assert offenders == []
+
+
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        search_mod.AlignmentSearchEngine((1, 3, 4, 2), False)
+    with pytest.raises(RuntimeError):
+        search_mod.search("ABCDEFG", "ABC", (1, 3, 4, 2), False)
+    inp = tmp_path / "in.txt"
+    inp.write_text("1 3 4 2 ABCDEFGH CDE minimum\n")
+    assert cli.main([str(inp), "-o", str(tmp_path / "o.txt"), "--quiet"]) == 2
+    assert not (tmp_path / "o.txt").exists()
+    # the host oracle needs no card
+    search_mod.AlignmentSearchEngine((1, 3, 4, 2), False, backend="numpy")
+
+
+def test_cpu_tensors_take_the_plain_version_without_a_launch():
+    t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
+    before = sw.launches
+    counts, maxrank = sw.offset_stats(np.arange(26, dtype=np.int32).repeat(40),
+                                      np.arange(20, dtype=np.int32), t, "cpu")
+    assert counts.shape == (26 * 40 - 20 + 1, 4) and maxrank.max() >= 0
+    assert sw.launches == before
+
+
+def test_library_build_is_deferred():
+    """Importing the sweep module builds nothing: the library is compiled at
+    the first CUDA launch."""
+    out = subprocess.run([sys.executable, "-c", "import psa_torch.ops.sweep as s; "
+                          "print(s._lib is None, s.launches)"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["True", "0"], out.stderr

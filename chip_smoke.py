@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the sweep kernel from psa_torch/csrc, holds it against its plain
-PyTorch version on the card, drives the port's main path (the engine and the
-`psa_torch.utils.cli` CLI) at the 100k x 10k north-star size, times the
-kernel, its plain version and the north-star query's phases with CUDA events
-and synchronised host clocks, and prints one JSON line per phase.  The
-second-to-last line lists each ported kernel; the last line is
+Builds the sweep kernels from psa_torch/csrc and holds each against its
+plain PyTorch version on the card.  Drives the port's two paths, each with
+the kernels' launch counts zeroed just before it and read just after:
+- the single-query path (the engine and the `psa_torch.utils.cli` CLI) at
+  the 100k x 10k north-star size;
+- the exact batch path (`search_batch` and `psa_torch.utils.cli --batch`)
+  on 1024 queries of 2048 x 512, per-row and with one shared Seq1, and on
+  8192 per-row queries (8 microbatches in flight).
+Times the kernels, their plain versions and both paths' phases with CUDA
+events and synchronised host clocks, and prints one JSON line per phase.
+The second-to-last line lists each ported kernel; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Imports neither JAX nor the JAX package.
 """
@@ -16,6 +21,7 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -31,6 +37,12 @@ ROOT = Path(__file__).resolve().parent
 NORTH_STAR = dict(n1=100_000, n2=10_000, seed=0, weights=(1.0, 3.0, 4.0, 2.0),
                   is_max=False)
 NORTH_STAR_WINNER = (84944, 10, 10, -21596.0)
+
+# The batch workload of benchmarks/batch_bench.py: 1024 queries
+# random_sequences(2048, 512, seed=s), s = 0..1023, weights 1 3 4 2, minimum;
+# and its shared-Seq1 form (SHARED_DEDUP_r05.json): the 1024 Seq2 reads
+# against the one Seq1 of seed 0.
+BATCH = dict(b=1024, n1=2048, n2=512, weights=(1.0, 3.0, 4.0, 2.0), is_max=False)
 
 # Published H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM
 # 3.35 TB/s; 67 TFLOP/s fp32 = 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz.  An
@@ -53,15 +65,26 @@ def fail(msg: str) -> int:
     return 1
 
 
-def sweep_bound(noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
-    """(bound_ms, bound_by) of one sweep: bytes each input read once and the
-    output written once over HBM, against this run's pair work over the
-    INT32 and shared-memory rates."""
-    pairs = float(noff) * n2
-    bytes_ms = (l1k + l2p + 32 * 32 + 8 * 4 * noff_pad) / HBM_BYTES_PER_S * 1e3
+def sweep_bound(pairs: float, in_bytes: int, out_bytes: int):
+    """(bound_ms, bound_by) of a sweep: the bytes of each input read once
+    and of the output written once over HBM, against this run's real
+    (offset, position) pairs over the INT32 and shared-memory rates."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = max(pairs * INT_OPS_PER_PAIR / INT32_OPS_PER_S,
                  pairs / SMEM_LOADS_PER_S) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def single_bound(noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
+    """`sweep_bound` of one query's sweep."""
+    return sweep_bound(float(noff) * n2, l1k + l2p + 32 * 32, 8 * 4 * noff_pad)
+
+
+def batched_bound(noffs, n2s, l1_bytes: int, c2b_bytes: int, noff_pad: int):
+    """`sweep_bound` of a batched sweep: every query's real pairs."""
+    pairs = float(np.dot(np.asarray(noffs, np.float64), np.asarray(n2s, np.float64)))
+    return sweep_bound(pairs, l1_bytes + c2b_bytes + 32 * 32,
+                       8 * 4 * noff_pad * len(noffs))
 
 
 def cuda_ms(torch, fn, runs: int, warm: int = 2):
@@ -89,6 +112,171 @@ def random_codes(rng, n: int, hyphen_p: float = 0.0, other_p: float = 0.0):
     return codes
 
 
+def zero_launches(sw) -> None:
+    sw.launches = sw.launches_batched = sw.launches_batched_shared = 0
+
+
+def read_launches(sw) -> dict:
+    return {"sweep": sw.launches, "sweep_batched": sw.launches_batched,
+            "sweep_batched_shared": sw.launches_batched_shared}
+
+
+def padded_batch(rng, sw, b: int, n1: int, n2: int, hyphen_p: float = 0.0,
+                 other_p: float = 0.0, ragged: bool = False):
+    """(c1b, c2b, noffs, n2s) of b random queries padded to the bucket of
+    (n1, n2); ragged rows are up to a third shorter."""
+    _, _, l2p, l1k = sw.plan_shapes(n1, n2)
+    c1b = np.full((b, l1k), 28, np.uint8)
+    c2b = np.full((b, l2p), 28, np.uint8)
+    noffs, n2s = np.zeros(b, np.int64), np.zeros(b, np.int64)
+    for q in range(b):
+        m1 = n1 - (int(rng.integers(0, n1 // 3)) if ragged else 0)
+        m2 = min(m1, n2 - (int(rng.integers(0, n2 // 3)) if ragged else 0))
+        c1b[q, :m1] = random_codes(rng, m1, hyphen_p, other_p)
+        c2b[q, :m2] = random_codes(rng, m2, hyphen_p, other_p)
+        noffs[q], n2s[q] = m1 - m2 + 1, m2
+    return c1b, c2b, noffs, n2s
+
+
+def batched_kernel_checks(torch, sw, code, dev):
+    """Both batched kernels against their plain versions on the card, all 8
+    rows (tolerance 0: every statistic is an exact integer).  Returns
+    ({kernel: max_abs_diff}, the B = 1024 of 2048 x 512 inputs) or raises."""
+    rng = np.random.default_rng(99)
+    worst = {"sweep_batched": 0, "sweep_batched_shared": 0}
+
+    def check(kernel, case, got, want, shape):
+        torch.cuda.synchronize()
+        diff = int((got.long() - want.long()).abs().max().item())
+        worst[kernel] = max(worst[kernel], diff)
+        emit({"phase": "batched_kernel_vs_plain", "kernel": kernel, "case": case,
+              "shape": shape, "max_abs_diff": diff, "tolerance": 0,
+              "rows4_sum": int(got[:, :4].sum().item())})
+        if diff != 0:
+            raise AssertionError(f"{kernel} disagrees with its reference at {case}")
+
+    big = None
+    for case, b, n1, n2, hp, op, ragged in (
+            ("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"], 0.0, 0.0, False),
+            ("b8_20000x2000", 8, 20_000, 2000, 0.0, 0.0, False),
+            ("ragged_lenient", 48, 5000, 700, 0.05, 0.05, True)):
+        c1b, c2b, _, _ = padded_batch(rng, sw, b, n1, n2, hp, op, ragged)
+        d1 = torch.from_numpy(c1b).to(dev)
+        d2 = torch.from_numpy(c2b).to(dev)
+        check("sweep_batched", case, sw.sweep_batched(d1, d2, code),
+              sw.sweep_batched_plain(d1, d2, code), list(c1b.shape) + [c2b.shape[1]])
+        if big is None:
+            big = (d1, d2)
+    for case, b, n1, n2 in (("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"]),
+                            ("b16_100000x2048", 16, 100_000, 2048)):
+        c1b, c2b, _, _ = padded_batch(rng, sw, b, n1, n2)
+        d1 = torch.from_numpy(c1b[0]).to(dev)
+        d2 = torch.from_numpy(c2b).to(dev)
+        got = sw.sweep_batched_shared(d1, d2, code)
+        check("sweep_batched_shared", case, got,
+              sw.sweep_batched_shared_plain(d1, d2, code),
+              [b, c1b.shape[1], c2b.shape[1]])
+        if case == "batch_2048x512":
+            broadcast = d1[None].expand(d2.shape[0], -1).contiguous()
+            check("sweep_batched_shared", "vs_sweep_batched_broadcast", got,
+                  sw.sweep_batched(broadcast, d2, code),
+                  [b, c1b.shape[1], c2b.shape[1]])
+    return worst, big
+
+
+def batch_queries(Query, random_sequences, shared: bool, b: int = BATCH["b"]):
+    """The batch workload (see BATCH), seeds 0..b-1."""
+    w = np.array(BATCH["weights"])
+    qs = []
+    for s in range(b):
+        s1, s2 = random_sequences(BATCH["n1"], BATCH["n2"], seed=s)
+        qs.append(Query(w, qs[0].seq1 if shared and qs else s1, s2,
+                        BATCH["is_max"]))
+    return qs
+
+
+def write_batch_cases(path: Path, generator, random_sequences) -> int:
+    """A `psa-torch-gen` file of mixed sizes: three generated buckets (both
+    modes, one with hyphens), one shared-Seq1 bucket and one lenient
+    no-mutation case.  Returns the number of cases."""
+    text, n = [], 0
+    for i, args in enumerate([["2048", "512", "--cases", "64", "--seed", "5000"],
+                              ["5000", "1000", "--cases", "8", "--mode", "maximum",
+                               "--hyphen-rate", "0.05", "--weights", "2,1,5,0.5"],
+                              ["700", "120", "--cases", "16", "--seed", "77"]]):
+        part = path.with_name(f"part{i}.txt")
+        if generator.main([*args, "-o", str(part)]) != 0:
+            raise AssertionError(f"psa-torch-gen {args} failed")
+        text.append(part.read_text())
+        n += int(args[args.index("--cases") + 1])
+    ref = random_sequences(3000, 10, seed=1)[0]
+    for s in range(20):
+        text.append(f"1 3 4 2\n{ref}\n{random_sequences(300, 300, seed=100 + s)[1]}"
+                    "\nminimum\n")
+    text.append("1 3 4 2\n" + "?" * 600 + "\n" + "!" * 50 + "\nmaximum\n")
+    path.write_text("".join(text))
+    return n + 21
+
+
+def batch_split(torch, batch, alphabet, queries, dtabs, shared: bool, runs: int):
+    """The batch path for one 1024-query bucket, phase by phase with a
+    synchronise after each: host prep (validation, encode), upload, device
+    (kernel, epilogue, pack), fetch, host selection.  Median ms per phase
+    over `runs` warm runs; returns (split, results of the last run)."""
+    split = {k: [] for k in ("host_prep", "upload", "device", "fetch",
+                             "host_select", "total")}
+    dev = dtabs.code.device
+    for it in range(runs + 2):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        ok = (alphabet.validate_batch([q.seq1 for q in queries])
+              & alphabet.validate_batch([q.seq2 for q in queries]))
+        assert ok.all()
+        _, _, l2p, l1k = batch.plan_shapes(len(queries[0].seq1), len(queries[0].seq2))
+        c1b = alphabet.encode_batch_padded([q.seq1 for q in queries], l1k)
+        c2b = alphabet.encode_batch_padded([q.seq2 for q in queries], l2p)
+        noffs = np.array([len(q.seq1) - len(q.seq2) + 1 for q in queries], np.int32)
+        n2s = np.array([len(q.seq2) for q in queries], np.int32)
+        t.append(time.perf_counter())
+        _, c1d = batch.upload_rows(c1b[0] if shared else c1b, dev)
+        _, c2d = batch.upload_rows(c2b, dev)
+        _, nd = batch.upload_rows(noffs, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        packed = batch.run_exact_batch(c1d, c2d, nd, dtabs, shared_s1=shared)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        buf = batch.start_fetch(packed).wait()
+        t.append(time.perf_counter())
+        topi, stats_k, near, best = batch.unpack_epilogue_outputs(buf, batch.TOPK)
+        res = batch._host_select(c1b, c2b, noffs, n2s, dtabs, topi,
+                                 np.swapaxes(stats_k, 1, 2), near, best, batch.TOPK)
+        t.append(time.perf_counter())
+        if it >= 2:
+            for name, a, b in zip(list(split)[:5], t, t[1:]):
+                split[name].append((b - a) * 1e3)
+            split["total"].append((t[-1] - t[0]) * 1e3)
+    return {k: statistics.median(v) for k, v in split.items()}, res
+
+
+def traced_busy(torch, fn):
+    """(host ms, device busy ms, top device events) of one traced call:
+    the device-side events only (kernels, copies, memsets), since the
+    operator entries on the host side repeat their kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and ev.self_device_time_total > 0}
+    return (host_ms, sum(dev_us.values()) / 1e3,
+            sorted(dev_us.items(), key=lambda kv: -kv[1])[:6])
+
+
 def main() -> int:
     if not (ROOT / "psa_torch" / "csrc" / "sweep.cu").is_file():
         return fail(f"no psa_torch package beside {Path(__file__).name}")
@@ -98,13 +286,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
 
+    from psa_torch.core import alphabet
     from psa_torch.core.alphabet import encode
     from psa_torch.core.tables import build_tables, device_tables
     from psa_torch.models import batch
     from psa_torch.models.search import AlignmentSearchEngine
     from psa_torch.ops import sweep as sw
+    from psa_torch.utils import generator
     from psa_torch.utils.generator import random_sequences, write_input_file
-    from psa_torch.utils.io import format_output
+    from psa_torch.utils.io import Query, format_output
 
     if not Path(sw.__file__).resolve().is_relative_to(ROOT):
         return fail(f"psa_torch imported from outside {ROOT}")
@@ -157,11 +347,16 @@ def main() -> int:
               "rows4_sum": int(got[:4, :noff].sum().item())})
         if diff != 0:
             return fail(f"kernel disagrees with its plain version at {name}")
+    try:
+        batched_abs, (big1, big2) = batched_kernel_checks(torch, sw, code, dev)
+    except AssertionError as e:
+        return fail(str(e))
 
-    # 4. main path, end to end; the launch count is read around it only
+    # 4. the single-query path, end to end; the launch counts are read
+    # around it only
     s1, s2 = random_sequences(NORTH_STAR["n1"], NORTH_STAR["n2"],
                               seed=NORTH_STAR["seed"])
-    sw.launches = 0
+    zero_launches(sw)
     eng = AlignmentSearchEngine(NORTH_STAR["weights"], NORTH_STAR["is_max"],
                                 backend="torch")
     t0 = time.perf_counter()
@@ -208,10 +403,76 @@ def main() -> int:
               "n1": n1, "n2": n2, "card": list(ta), "numpy": list(tb)})
         if ta != tb:
             return fail(f"card {ta} != numpy {tb}")
-    main_launches = sw.launches
-    emit({"phase": "main_path_launches", "sweep": main_launches})
-    if main_launches < 1 + len(queries):
-        return fail("the main path did not go through the sweep kernel")
+    single_launches = read_launches(sw)
+    emit({"phase": "main_path_launches", "path": "single_query", **single_launches})
+    if single_launches["sweep"] < 1 + len(queries):
+        return fail("the single-query path did not go through the sweep kernel")
+
+    # 4b. the batch path, end to end: 1024 queries with their own Seq1 and
+    # 1024 reads against one shared Seq1; the launch counts are read around
+    # the two search_batch calls only
+    from psa_torch.models.batch import search_batch
+
+    bq = {"per_row": batch_queries(Query, random_sequences, shared=False),
+          "shared_s1": batch_queries(Query, random_sequences, shared=True)}
+    # 8 microbatches in flight together: seeds 0..8191, of which the first
+    # 1024 are the per-row workload
+    wide = batch_queries(Query, random_sequences, shared=False, b=8 * BATCH["b"])
+    bres, first = {}, {}
+    zero_launches(sw)
+    for name, qs in bq.items():
+        t0 = time.perf_counter()
+        bres[name] = search_batch(qs)
+        first[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide_res = search_batch(wide)
+    wide_s = time.perf_counter() - t0
+    batch_launches = read_launches(sw)
+    emit({"phase": "main_path_launches", "path": "batch", **batch_launches})
+    if batch_launches["sweep_batched"] < 1 or batch_launches["sweep_batched_shared"] < 1:
+        return fail("the batch path did not go through both batched kernels")
+    emit({"phase": "batch_8_microbatches", "queries": len(wide),
+          "first_call_s": wide_s, "first_1024_equal": wide_res[:BATCH["b"]] == bres["per_row"]})
+    if wide_res[:BATCH["b"]] != bres["per_row"]:
+        return fail("the 8-microbatch batch differs from the one-microbatch batch")
+    srng = np.random.default_rng(64)
+    for name, qs in bq.items():
+        sample = sorted(srng.choice(len(qs), 64, replace=False).tolist())
+        want = search_batch([qs[i] for i in sample], backend="numpy")
+        got = [bres[name][i] for i in sample]
+        emit({"phase": "batch_vs_numpy", "workload": name, "queries": len(qs),
+              "sampled": len(sample), "equal": got == want,
+              "first_call_s": first[name],
+              "no_mutation": sum(r is None for r in bres[name]),
+              "winner_0": [got[0].offset, got[0].char_offset, got[0].sub_code,
+                           got[0].score] if got[0] else None})
+        if got != want:
+            return fail(f"batch path {name} differs from the numpy backend")
+
+    bdir = ROOT / "psa_torch" / "_build" / "smoke_batch"
+    bdir.mkdir(parents=True, exist_ok=True)
+    cases_txt = bdir / "cases.txt"
+    n_cases = write_batch_cases(cases_txt, generator, random_sequences)
+    runs = {}
+    for tag, extra in (("card", []), ("numpy", ["--backend", "numpy"])):
+        out = bdir / f"outs_{tag}"
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "psa_torch.utils.cli",
+                               str(cases_txt), "--batch", "--lenient", "--quiet",
+                               "-o", str(out), *extra], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        runs[tag] = (proc, time.perf_counter() - t0,
+                     {f.name: f.read_bytes() for f in sorted(out.glob("out_*.txt"))})
+    (pc, pc_s, fc), (pn, pn_s, fn) = runs["card"], runs["numpy"]
+    cli_batch_ok = (pc.returncode == pn.returncode == 1 and len(fc) == n_cases
+                    and fc == fn)
+    emit({"phase": "cli_batch", "cases": n_cases, "rc_card": pc.returncode,
+          "rc_numpy": pn.returncode, "files": len(fc), "bytes_equal": fc == fn,
+          "seconds_card": pc_s, "seconds_numpy": pn_s,
+          "stderr_tail": pc.stderr[-400:]})
+    if not cli_batch_ok:
+        return fail("psa-torch --batch differs from its numpy backend")
 
     # 5. times on the card
     timings = {}
@@ -225,7 +486,7 @@ def main() -> int:
         k_ms, k_q1, k_q3 = cuda_ms(torch, lambda: sw.sweep(d1, d2, code), runs=20)
         p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: sw.sweep_plain(d1, d2, code),
                                    runs=10, warm=1)
-        bound_ms, bound_by = sweep_bound(noff, n2, l1k, l2p, noff_pad)
+        bound_ms, bound_by = single_bound(noff, n2, l1k, l2p, noff_pad)
         pairs = float(noff) * n2
         timings[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
@@ -274,33 +535,101 @@ def main() -> int:
         t0 = time.perf_counter()
         eng.search(s1, s2)
         walls.append((time.perf_counter() - t0) * 1e3)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.search(s1, s2)
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, memsets): the operator
-    # entries on the host side repeat their kernels' time
-    dev_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA
-              and ev.self_device_time_total > 0}
-    busy_ms = sum(dev_us.values()) / 1e3
+    traced_ms, busy_ms, top = traced_busy(torch, lambda: eng.search(s1, s2))
     emit({"phase": "north_star_engine_ms", "median": statistics.median(walls),
           "min": min(walls), "max": max(walls), "runs": len(walls),
           "traced_ms": traced_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else None,
           "device_idle_share": 1 - busy_ms / traced_ms if busy_ms > 0 else None,
-          "device_top": sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]})
+          "device_top": top})
+
+    # 5b. the batched kernels at the batch workload's shape (B = 1024 of
+    # 2048 x 512), their plain versions, and the batch path's phases
+    b = BATCH["b"]
+    noff_b, noff_pad_b, l2p_b, l1k_b = sw.plan_shapes(BATCH["n1"], BATCH["n2"])
+    big1_row = big1[0].contiguous()
+    ktimes = {}
+    for name, fn, plain, l1_bytes in (
+            ("sweep_batched", lambda: sw.sweep_batched(big1, big2, code),
+             lambda: sw.sweep_batched_plain(big1, big2, code), b * l1k_b),
+            ("sweep_batched_shared",
+             lambda: sw.sweep_batched_shared(big1_row, big2, code),
+             lambda: sw.sweep_batched_shared_plain(big1_row, big2, code), l1k_b)):
+        k_ms, k_q1, k_q3 = cuda_ms(torch, fn, runs=30)
+        p_ms, p_q1, p_q3 = cuda_ms(torch, plain, runs=10, warm=1)
+        bound_ms, bound_by = batched_bound([noff_b] * b, [BATCH["n2"]] * b,
+                                           l1_bytes, b * l2p_b, noff_pad_b)
+        ktimes[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        emit({"phase": "batched_sweep_time", "kernel": name, "b": b,
+              "n1": BATCH["n1"], "n2": BATCH["n2"], "kernel_ms": k_ms,
+              "kernel_ms_iqr": [k_q1, k_q3], "us_per_query": k_ms * 1e3 / b,
+              "pair_evals_per_s": b * noff_b * BATCH["n2"] / (k_ms * 1e-3),
+              "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "runs": 30, "plain_runs": 10})
+
+    dtabs_b = device_tables(build_tables(np.array(BATCH["weights"]),
+                                         BATCH["is_max"]), dev)
+    for name, qs in bq.items():
+        shared = name == "shared_s1"
+        split, res_split = batch_split(torch, batch, alphabet, qs, dtabs_b,
+                                       shared, runs=10)
+        if res_split != bres[name]:
+            return fail(f"the phased batch run of {name} changed its results")
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            search_batch(qs)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        traced_ms, busy_ms, top = traced_busy(torch, lambda: search_batch(qs))
+        med = statistics.median(walls)
+        emit({"phase": "batch_path_ms", "workload": name, "queries": len(qs),
+              "split_ms": split, "split_runs": 10,
+              "search_batch_ms": med, "min": min(walls), "max": max(walls),
+              "runs": len(walls), "queries_per_s": len(qs) / (med * 1e-3),
+              "traced_ms": traced_ms,
+              "device_busy_ms": busy_ms if busy_ms > 0 else None,
+              "device_busy_share": busy_ms / traced_ms if busy_ms > 0 else None,
+              "device_top": top})
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        search_batch(wide)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    traced_ms, busy_ms, top = traced_busy(torch, lambda: search_batch(wide))
+    med = statistics.median(walls)
+    emit({"phase": "batch_path_ms", "workload": "per_row_8_microbatches",
+          "queries": len(wide), "search_batch_ms": med, "min": min(walls),
+          "max": max(walls), "runs": len(walls),
+          "queries_per_s": len(wide) / (med * 1e-3), "traced_ms": traced_ms,
+          "device_busy_ms": busy_ms if busy_ms > 0 else None,
+          "device_busy_share": busy_ms / traced_ms if busy_ms > 0 else None,
+          "device_top": top})
 
     # 6. the ported kernels
     print(smi_line, flush=True)
-    emit({"kernels": [{
-        "name": "sweep", "route": "cuda", "source": "psa_torch/csrc/sweep.cu",
-        "replaces": "psa_tpu/ops/pallas_sweep.py:297",
-        "launches": main_launches, "max_abs_err": max_abs,
-        "max_abs_diff": max_abs, "shape": "100000x10000",
-        **timings["north_star"], "library_ms": None}]})
+    shape_b = f"{b}x{BATCH['n1']}x{BATCH['n2']}"
+    emit({"kernels": [
+        {"name": "sweep", "route": "cuda", "source": "psa_torch/csrc/sweep.cu",
+         "replaces": "psa_tpu/ops/pallas_sweep.py:297",
+         "launches": single_launches["sweep"], "max_abs_err": max_abs,
+         "max_abs_diff": max_abs, "shape": "100000x10000",
+         **timings["north_star"], "library_ms": None},
+        {"name": "sweep_batched", "route": "cuda",
+         "source": "psa_torch/csrc/sweep_batched.cu",
+         "replaces": "psa_tpu/ops/pallas_sweep.py:365",
+         "launches": batch_launches["sweep_batched"],
+         "max_abs_err": batched_abs["sweep_batched"],
+         "max_abs_diff": batched_abs["sweep_batched"], "shape": shape_b,
+         **ktimes["sweep_batched"], "library_ms": None},
+        {"name": "sweep_batched_shared", "route": "cuda",
+         "source": "psa_torch/csrc/sweep_batched.cu",
+         "replaces": "psa_tpu/ops/pallas_sweep.py:492",
+         "launches": batch_launches["sweep_batched_shared"],
+         "max_abs_err": batched_abs["sweep_batched_shared"],
+         "max_abs_diff": batched_abs["sweep_batched_shared"], "shape": shape_b,
+         **ktimes["sweep_batched_shared"], "library_ms": None}]})
     # 7. last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

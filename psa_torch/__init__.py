@@ -2,9 +2,11 @@
 
 The PyTorch/CUDA counterpart of `psa_tpu`, module for module: the same
 winner tuple (offset, char_offset, substitute, score) and the same output
-bytes for every query.  The offset sweep runs in a CUDA kernel written for
-Hopper (csrc/sweep.cu); everything around it is plain torch on the card and
-numpy on the host.  The package imports neither JAX nor `psa_tpu`.
+bytes for every query, one at a time (models/search.py) or in batches
+(models/batch.search_batch).  The offset sweeps run in CUDA kernels written
+for Hopper (csrc/sweep.cu for one query, csrc/sweep_batched.cu for a
+batch); everything around them is plain torch on the card and numpy on the
+host.  The package imports neither JAX nor `psa_tpu`.
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`); with no GPU present they raise instead of running on the

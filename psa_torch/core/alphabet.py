@@ -31,6 +31,7 @@ _ENC = np.full(256, OTHER_CODE, dtype=np.int32)
 for _i in range(NUM_LETTERS):
     _ENC[ord("A") + _i] = _i
 _ENC[ord("-")] = HYPHEN_CODE
+_ENC8 = _ENC.astype(np.uint8)
 
 _DEC = np.array([chr(ord("A") + i) for i in range(NUM_LETTERS)] + ["-", "?", "."])
 
@@ -67,6 +68,42 @@ def validate(seq: str) -> bool:
     """True when every character is in the engine's defined alphabet (A-Z, '-')."""
     raw = np.frombuffer(seq.encode("ascii", errors="replace"), np.uint8)
     return bool(np.all(_ENC[raw] <= HYPHEN_CODE))
+
+
+def encode_batch_padded(seqs, length: int) -> np.ndarray:
+    """Encode many sequences into one PAD-padded (len(seqs), length) uint8
+    array with one table gather over the joined bytes (the kernels' input
+    type, so the upload needs no cast)."""
+    n = len(seqs)
+    lens = np.fromiter((len(s) for s in seqs), np.int64, n)
+    if lens.size and int(lens.max()) > length:
+        i = int(np.argmax(lens))
+        raise ValueError(
+            f"sequence length {len(seqs[i])} exceeds padded length {length}")
+    joined = "".join(seqs).encode("ascii", errors="replace")
+    codes = _ENC8[np.frombuffer(joined, np.uint8)]
+    buf = np.full((n, length), PAD_CODE, np.uint8)
+    o = 0
+    for i, s in enumerate(seqs):
+        buf[i, : len(s)] = codes[o: o + len(s)]
+        o += len(s)
+    return buf
+
+
+def validate_batch(seqs) -> np.ndarray:
+    """Per-sequence validity flags (A-Z and '-' only) for many sequences in
+    one vectorized pass."""
+    n = len(seqs)
+    joined = "".join(seqs).encode("ascii", errors="replace")
+    if not joined:
+        return np.ones(n, bool)
+    flags = _ENC8[np.frombuffer(joined, np.uint8)] > HYPHEN_CODE
+    if not flags.any():                 # the common case: everything valid
+        return np.ones(n, bool)
+    lens = np.fromiter((len(s) for s in seqs), np.int64, n)
+    bad = np.concatenate([[0], np.cumsum(flags)])
+    ends = np.cumsum(lens)
+    return bad[ends] == bad[ends - lens]
 
 
 ALPHABET_ERROR = ("sequences must contain only A-Z and '-' "

@@ -93,6 +93,62 @@ def rescore_candidates(codes1: np.ndarray, codes2: np.ndarray,
     return totals, best_i, best_sub
 
 
+def rescore_multi(c1b: np.ndarray, c2b: np.ndarray, n2s: np.ndarray,
+                  tables: ScoringTables, qidx: np.ndarray,
+                  offsets: np.ndarray):
+    """`rescore_candidates` for candidates of many queries at once:
+    candidate j is offset offsets[j] of query qidx[j], whose codes are row
+    qidx[j] of the padded (B, L1) / (B, L2) matrices c1b / c2b and whose
+    Seq2 length is n2s[qidx[j]].
+
+    The positions run in order, i < max(n2s[qidx]), vectorized across every
+    candidate and masked by i < n2 of its query, so each candidate's f64
+    accumulation and strict-improvement tracking are the reference's
+    sequential ones: totals, char offsets and sub codes are bit-identical to
+    per-query `rescore_candidates` (and to the JAX package's native
+    psa_rescore_multi).  Returns (totals (k,) f64, char_offsets (k,) i64,
+    sub_codes (k,) i64)."""
+    qidx = np.asarray(qidx, np.int64)
+    offsets = np.asarray(offsets, np.int64)
+    c1b = np.ascontiguousarray(c1b)
+    c2b = np.ascontiguousarray(c2b)
+    n2q = np.asarray(n2s, np.int64)[qidx]
+    k = qidx.shape[0]
+    is_max = tables.is_max
+    ncol = tables.pair_w.shape[1]
+    pair_w = tables.pair_w.ravel()
+    diff = tables.diff.ravel()
+    sub = tables.sub.ravel()
+
+    # flat indices: candidate j reads c1b.flat[pos1[j] + i] (clipped to its
+    # row's last code once its window is done; that pair is masked out) and
+    # c2b.flat[pos2[j] + i]
+    l1, l2 = c1b.shape[1], c2b.shape[1]
+    c1f = c1b.reshape(-1)
+    c2f = c2b.reshape(-1)
+    pos1 = qidx * l1 + offsets
+    end1 = qidx * l1 + (l1 - 1)
+    pos2 = qidx * l2
+
+    totals = np.zeros(k, dtype=np.float64)
+    best_diff = np.full(k, -np.inf if is_max else np.inf)
+    best_i = np.full(k, -1, dtype=np.int64)
+    best_sub = np.full(k, -1, dtype=np.int64)
+    for i in range(int(n2q.max()) if k else 0):
+        act = i < n2q
+        pair = (c1f[np.minimum(pos1 + i, end1)].astype(np.intp) * ncol
+                + c2f[pos2 + i])
+        np.add(totals, pair_w[pair], out=totals, where=act)
+        d = diff[pair]
+        # strict improvement only (cpu_funcs.c:287-288); NaN compares False
+        better = act & ((d > best_diff) if is_max else (d < best_diff))
+        np.copyto(best_diff, d, where=better)
+        np.copyto(best_i, i, where=better)
+        np.copyto(best_sub, sub[pair], where=better)
+    totals = np.where(best_i >= 0, totals + best_diff, best_diff)
+    return totals, best_i, best_sub
+
+
 def offset_stats_numpy(codes1: np.ndarray, codes2: np.ndarray,
                        tables: ScoringTables, chunk: int = 2048):
     """Per-offset integer stats: counts (noff, 4) int32, maxrank (noff,) int32.

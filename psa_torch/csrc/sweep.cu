@@ -21,35 +21,17 @@
 // shared-memory table read and a few integer operations, while each code
 // byte read from device memory serves a whole tile of offsets — so the
 // INT32 instruction rate and the shared-memory request rate bound it, not HBM.
-// The design keeps the per-pair work at one 32-bit shared load and three
-// integer ops (address, add, max):
-//   * the table is expanded per block into 32-bit entries
-//       e = (v << 24) | (1 << (6 * ((v - 1) & 3)))   (0 for v == 0)
-//     so one add accumulates the class count in a 6-bit field and one
-//     unsigned max tracks max(v) in the top byte; the fields are drained
-//     into plain counters every kFlush (< 64) positions;
-//   * the expanded table is stored transposed, tab[c2][c1]: a warp reads
-//     one Seq2 position against 32 Seq1 codes, i.e. words of one 32-word
-//     row, which are 32 distinct banks (indexed [c1][c2] they would all
-//     fall into one bank);
-//   * each thread owns kOffsetsPerThread consecutive offsets and slides a
-//     register window along Seq1, so Seq1 costs one shared load per
-//     kOffsetsPerThread pairs;
-//   * Seq2 is split across grid.y so that a 100k-offset query still fills
-//     the 132 SMs; the partial results meet in atomics on `out`, which the
-//     entry point zeroes first.
+// The per-pair design (expanded table, transposed for banks, register window
+// along Seq1) is in sweep_core.cuh, shared with the batched kernels.  Here,
+// Seq2 is split across grid.y so that a 100k-offset query still fills the
+// 132 SMs; the partial results meet in atomics on `out`, which the entry
+// point zeroes first.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sweep_core.cuh"
+
+using namespace psa;
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kOffsetsPerThread = 8;
-constexpr int kTile = kThreads * kOffsetsPerThread;   // offsets per block
-constexpr int kSeg = 1024;                            // Seq2 positions per block
-constexpr int kFlush = 32;                            // 6-bit fields hold 63
-constexpr uint8_t kPadCode = 28;
 
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const uint8_t* __restrict__ c1, int l1,
@@ -60,73 +42,15 @@ sweep_kernel(const uint8_t* __restrict__ c1, int l1,
   __shared__ uint8_t s1[kTile + kSeg];
   __shared__ uint8_t s2[kSeg];
 
-  const int t = threadIdx.x;
   const int o0 = blockIdx.x * kTile;
   const int p0 = blockIdx.y * kSeg;
   const int seg = min(kSeg, l2p - p0);       // a multiple of kFlush
 
-  for (int e = t; e < 32 * 32; e += kThreads) {
-    const int a = e & 31;                    // Seq1 code
-    const int b = e >> 5;                    // Seq2 code
-    const uint32_t v = static_cast<uint8_t>(code[a * 32 + b]);
-    tab[e] = v ? ((v << 24) | (1u << (6 * ((v - 1) & 3)))) : 0u;
-  }
-  // Codes are masked to the table's 32 rows: a stray byte can never read
-  // outside it.
-  for (int i = t; i < kTile + seg; i += kThreads) {
-    const long g = static_cast<long>(o0) + p0 + i;
-    s1[i] = (g < l1 ? c1[g] : kPadCode) & 31;
-  }
-  for (int i = t; i < seg; i += kThreads) s2[i] = c2[p0 + i] & 31;
+  expand_table(tab, code);
+  stage_codes(s1, c1, l1, static_cast<long>(o0) + p0, kTile + seg);
+  stage_codes(s2, c2, l2p, p0, seg);
   __syncthreads();
-
-  const int base = t * kOffsetsPerThread;
-  uint32_t w[kOffsetsPerThread];             // w[j] = s1[base + i + j]
-  uint32_t mx[kOffsetsPerThread];
-  int cnt[kOffsetsPerThread][4];
-#pragma unroll
-  for (int j = 0; j < kOffsetsPerThread; ++j) {
-    w[j] = s1[base + j];
-    mx[j] = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cnt[j][k] = 0;
-  }
-
-  for (int i0 = 0; i0 < seg; i0 += kFlush) {
-    uint32_t acc[kOffsetsPerThread];
-#pragma unroll
-    for (int j = 0; j < kOffsetsPerThread; ++j) acc[j] = 0;
-#pragma unroll
-    for (int ii = 0; ii < kFlush; ++ii) {
-      const uint32_t* row = tab + (static_cast<uint32_t>(s2[i0 + ii]) << 5);
-#pragma unroll
-      for (int j = 0; j < kOffsetsPerThread; ++j) {
-        const uint32_t e = row[w[j]];
-        acc[j] += e;
-        mx[j] = max(mx[j], e);
-      }
-#pragma unroll
-      for (int j = 0; j + 1 < kOffsetsPerThread; ++j) w[j] = w[j + 1];
-      // the last index read is base + seg - 1 + kOffsetsPerThread
-      // <= kTile + seg - 1, inside s1
-      w[kOffsetsPerThread - 1] = s1[base + i0 + ii + kOffsetsPerThread];
-    }
-#pragma unroll
-    for (int j = 0; j < kOffsetsPerThread; ++j) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) cnt[j][k] += (acc[j] >> (6 * k)) & 63;
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kOffsetsPerThread; ++j) {
-    const int o = o0 + base + j;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (cnt[j][k]) atomicAdd(out + static_cast<long>(k) * noff_pad + o, cnt[j][k]);
-    }
-    if (mx[j]) atomicMax(out + 4L * noff_pad + o, static_cast<int>(mx[j] >> 24));
-  }
+  sweep_tile(tab, s1, s2, seg, out, noff_pad, o0, /*exclusive=*/false);
 }
 
 }  // namespace

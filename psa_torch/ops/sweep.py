@@ -1,5 +1,5 @@
-"""The offset sweep: the CUDA kernel's wrapper, its plain PyTorch version,
-shape planning, and `offset_stats`.
+"""The offset sweeps: the CUDA kernels' wrappers, their plain PyTorch
+versions, shape planning, and `offset_stats`.
 
 For each offset o of Seq2 under Seq1 the sweep reads the fused code
 CODE[s1[o+i], s2[i]] at every position i and returns, per offset, the exact
@@ -11,8 +11,11 @@ the class counts, row 4 the max code (0 = no substitution anywhere), rows
 
 `sweep` launches the hand-written Hopper kernel (csrc/sweep.cu) for CUDA
 tensors and runs `sweep_plain` — the blocked gather of the JAX package's
-engine_xla, in torch — for CPU tensors.  A failed build or launch raises;
-nothing falls back to the plain version.
+engine_xla, in torch — for CPU tensors.  `sweep_batched` and
+`sweep_batched_shared` do the same for B queries at once, (B, 8, noff_pad)
+(csrc/sweep_batched.cu; plain versions `sweep_batched_plain` and
+`sweep_batched_shared_plain`).  A failed build or launch raises; nothing
+falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -31,18 +34,21 @@ from psa_torch.core.alphabet import PAD_CODE
 from psa_torch.core.tables import ScoringTables
 from psa_torch.ops.common import round_up
 
-TILE_O = 1024    # offsets per thread block (csrc/sweep.cu kTile)
-L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep.cu kFlush)
+TILE_O = 1024    # offsets per thread block (csrc/sweep_core.cuh kTile)
+L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
 
-# Kernel launches made by `sweep`: a plain integer a caller can zero and read
-# to show that a path went through the kernel.
-launches = 0
+# Kernel launches made by each wrapper: plain integers a caller can zero and
+# read to show that a path went through the kernel.
+launches = 0                  # sweep (csrc/sweep.cu)
+launches_batched = 0          # sweep_batched (csrc/sweep_batched.cu)
+launches_batched_shared = 0   # sweep_batched_shared (csrc/sweep_batched.cu)
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "sweep.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v"]
 _lib = None
 
 
@@ -69,63 +75,141 @@ def upload_codes(codes: np.ndarray, length: int, device) -> torch.Tensor:
     return torch.from_numpy(buf).to(device)
 
 
+def _build_tag() -> str:
+    """Hash of every kernel source and header, so an edit to any rebuilds."""
+    h = hashlib.sha256()
+    for f in sorted(_CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build_library() -> ctypes.CDLL:
-    """Compile csrc/sweep.cu with nvcc for sm_90a into a plain-C shared
-    library under psa_torch/_build (named by the source's hash, so an edit
-    rebuilds) and load it.  The compiler's output, register and spill counts
-    included, is kept beside it as a .log file."""
+    """Compile every csrc/*.cu with nvcc for sm_90a (one nvcc per source,
+    all started together), link them into one plain-C shared library under
+    psa_torch/_build named by the sources' hash, and load it.  The
+    compilers' output, register and spill counts included, is kept beside
+    it as a .log file."""
     global _lib
     if _lib is not None:
         return _lib
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    tag = _build_tag()
     so = _BUILD_DIR / f"libpsa_sweep_{tag}.so"
     if not so.exists():
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA sweep kernel cannot be built")
+            raise RuntimeError("nvcc not found: the CUDA sweep kernels cannot be built")
         _BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
+        jobs = []
+        for src in sorted(_CSRC.glob("*.cu")):
+            obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _, proc in jobs:
+            log.append(f"== {src.name}\n{proc.communicate()[0]}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if not failed:
+            proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                                   *(str(obj) for _, obj, _ in jobs)],
+                                  capture_output=True, text=True)
+            log.append(f"== link\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append("link")
+        so.with_suffix(".log").write_text("\n".join(log))
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "\n".join(log))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.psa_sweep_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.psa_sweep_batched_launch,
+               lib.psa_sweep_batched_shared_launch):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.psa_sweep_launch.restype = ctypes.c_int
     lib.psa_sweep_tile.restype = ctypes.c_int
     lib.psa_sweep_align.restype = ctypes.c_int
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p
     if (lib.psa_sweep_tile(), lib.psa_sweep_align()) != (TILE_O, L2_ALIGN):
-        raise RuntimeError("csrc/sweep.cu tile constants disagree with ops/sweep.py")
+        raise RuntimeError("csrc tile constants disagree with ops/sweep.py")
     _lib = lib
     return lib
 
 
-def _check(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor):
-    """Validate the sweep's operands; returns (noff_pad, l2p)."""
-    for name, t, dtype in (("c1", c1, torch.uint8), ("c2", c2, torch.uint8),
-                           ("code", code, torch.int8)):
+def _check_operands(**named):
+    """Types, contiguity and one device for the sweep's operands."""
+    device = None
+    for name, (t, dtype) in named.items():
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != c1.device:
-            raise ValueError(f"{name} is on {t.device}, c1 on {c1.device}")
-    if c1.dim() != 1 or c2.dim() != 1 or tuple(code.shape) != (32, 32):
-        raise ValueError("expected c1 (l1k,), c2 (l2p,) and code (32, 32)")
-    l2p = c2.shape[0]
-    noff_pad = c1.shape[0] - l2p
+        if device is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        device = t.device
+
+
+def _check_lengths(l1k: int, l2p: int) -> int:
+    """noff_pad for Seq1 length l1k and padded Seq2 length l2p."""
+    noff_pad = l1k - l2p
     if l2p == 0 or l2p % L2_ALIGN or noff_pad <= 0 or noff_pad % TILE_O:
-        raise ValueError(f"bad sweep shapes: l1k={c1.shape[0]}, l2p={l2p} "
+        raise ValueError(f"bad sweep shapes: l1k={l1k}, l2p={l2p} "
                          f"(need l2p % {L2_ALIGN} == 0 and "
                          f"(l1k - l2p) % {TILE_O} == 0)")
-    return noff_pad, l2p
+    return noff_pad
+
+
+def _check(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor):
+    """Validate the sweep's operands; returns (noff_pad, l2p)."""
+    _check_operands(c1=(c1, torch.uint8), c2=(c2, torch.uint8),
+                    code=(code, torch.int8))
+    if c1.dim() != 1 or c2.dim() != 1 or tuple(code.shape) != (32, 32):
+        raise ValueError("expected c1 (l1k,), c2 (l2p,) and code (32, 32)")
+    return _check_lengths(c1.shape[0], c2.shape[0]), c2.shape[0]
+
+
+def _check_batched(c1: torch.Tensor, c2b: torch.Tensor, code: torch.Tensor,
+                   shared: bool):
+    """Validate a batched sweep's operands; returns (b, noff_pad)."""
+    _check_operands(c1=(c1, torch.uint8), c2b=(c2b, torch.uint8),
+                    code=(code, torch.int8))
+    want_c1 = 1 if shared else 2
+    if (c1.dim() != want_c1 or c2b.dim() != 2 or c2b.shape[0] == 0
+            or (not shared and c1.shape[0] != c2b.shape[0])
+            or tuple(code.shape) != (32, 32)):
+        raise ValueError("expected c1 " + ("(l1k,)" if shared else "(B, l1k)")
+                         + ", c2b (B, l2p) with B > 0 and code (32, 32)")
+    return c2b.shape[0], _check_lengths(c1.shape[-1], c2b.shape[1])
+
+
+def _launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
+            code: torch.Tensor, out_shape: tuple, *batch: int):
+    """Run the kernel behind C entry point `entry` on c1's device and
+    current stream into a new int32 `out_shape` tensor; `batch` is the
+    batched entry points' B."""
+    lib = build_library()
+    out = torch.empty(out_shape, dtype=torch.int32, device=c1.device)
+    with torch.cuda.device(c1.device):
+        stream = torch.cuda.current_stream(c1.device).cuda_stream
+        err = getattr(lib, entry)(c1.data_ptr(), c1.shape[-1], c2.data_ptr(),
+                                  c2.shape[-1], code.data_ptr(),
+                                  out.data_ptr(), out_shape[-1], *batch,
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: "
+                           + lib.psa_error_string(err).decode())
+    return out
 
 
 def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
@@ -135,22 +219,51 @@ def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tenso
     int8 fused table.  Codes must be < 32.  CUDA tensors go through the
     Hopper kernel, CPU tensors through `sweep_plain`."""
     global launches
-    noff_pad, l2p = _check(c1, c2, code)
+    noff_pad, _ = _check(c1, c2, code)
     if c1.device.type == "cpu":
         return sweep_plain(c1, c2, code)
     if c1.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1.device}")
-    lib = build_library()
-    out = torch.empty((8, noff_pad), dtype=torch.int32, device=c1.device)
-    with torch.cuda.device(c1.device):
-        stream = torch.cuda.current_stream(c1.device).cuda_stream
-        err = lib.psa_sweep_launch(c1.data_ptr(), c1.shape[0], c2.data_ptr(),
-                                   l2p, code.data_ptr(), out.data_ptr(),
-                                   noff_pad, stream)
-    if err != 0:
-        raise RuntimeError("sweep kernel launch failed: "
-                           + lib.psa_error_string(err).decode())
+    out = _launch("psa_sweep_launch", c1, c2, code, (8, noff_pad))
     launches += 1
+    return out
+
+
+def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
+                  code: torch.Tensor) -> torch.Tensor:
+    """(B, 8, noff_pad) int32: `sweep` for B queries, each with its own
+    Seq1 row.  c1b (B, noff_pad + l2p) and c2b (B, l2p) uint8, PAD_CODE
+    past each sequence.  CUDA tensors go through the Hopper kernel
+    (replacing _sweep_kernel_batched), CPU tensors through
+    `sweep_batched_plain`."""
+    global launches_batched
+    b, noff_pad = _check_batched(c1b, c2b, code, shared=False)
+    if c1b.device.type == "cpu":
+        return sweep_batched_plain(c1b, c2b, code)
+    if c1b.device.type != "cuda":
+        raise ValueError(f"no sweep for device {c1b.device}")
+    out = _launch("psa_sweep_batched_launch", c1b, c2b, code,
+                  (b, 8, noff_pad), b)
+    launches_batched += 1
+    return out
+
+
+def sweep_batched_shared(c1: torch.Tensor, c2b: torch.Tensor,
+                         code: torch.Tensor) -> torch.Tensor:
+    """(B, 8, noff_pad) int32: `sweep_batched` for B queries that share the
+    one Seq1 row c1 (noff_pad + l2p,); equal to `sweep_batched` on B
+    broadcast copies of it.  CUDA tensors go through the Hopper kernel
+    (replacing _sweep_kernel_batched_shared), CPU tensors through
+    `sweep_batched_shared_plain`."""
+    global launches_batched_shared
+    b, noff_pad = _check_batched(c1, c2b, code, shared=True)
+    if c1.device.type == "cpu":
+        return sweep_batched_shared_plain(c1, c2b, code)
+    if c1.device.type != "cuda":
+        raise ValueError(f"no sweep for device {c1.device}")
+    out = _launch("psa_sweep_batched_shared_launch", c1, c2b, code,
+                  (b, 8, noff_pad), b)
+    launches_batched_shared += 1
     return out
 
 
@@ -187,6 +300,24 @@ def sweep_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
     return out
 
 
+def sweep_batched_plain(c1b: torch.Tensor, c2b: torch.Tensor,
+                        code: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `sweep_batched`: `sweep_plain` row by
+    row."""
+    _check_batched(c1b, c2b, code, shared=False)
+    return torch.stack([sweep_plain(c1b[q], c2b[q], code)
+                        for q in range(c2b.shape[0])])
+
+
+def sweep_batched_shared_plain(c1: torch.Tensor, c2b: torch.Tensor,
+                               code: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `sweep_batched_shared`: `sweep_plain`
+    of the one Seq1 row against each Seq2 row."""
+    _check_batched(c1, c2b, code, shared=True)
+    return torch.stack([sweep_plain(c1, c2b[q], code)
+                        for q in range(c2b.shape[0])])
+
+
 def maxrank_from_maxcode(maxcode):
     """rank = ((code-1) >> 2) - 1, clamped to -1 for 'no substitution'."""
     if isinstance(maxcode, np.ndarray):
@@ -195,9 +326,10 @@ def maxrank_from_maxcode(maxcode):
 
 
 def stats5_from_sweep(out: torch.Tensor) -> torch.Tensor:
-    """(8, noff_pad) sweep output -> (5, noff_pad) int32 stats: rows 0-3
-    class counts, row 4 maxrank."""
-    return torch.cat([out[:4], maxrank_from_maxcode(out[4:5])], dim=0)
+    """(..., 8, noff_pad) sweep output -> (..., 5, noff_pad) int32 stats:
+    rows 0-3 class counts, row 4 maxrank."""
+    return torch.cat([out[..., :4, :], maxrank_from_maxcode(out[..., 4:5, :])],
+                     dim=-2)
 
 
 def offset_stats(codes1: np.ndarray, codes2: np.ndarray,

@@ -1,11 +1,13 @@
 """Command-line entry point: `psa-torch input.txt -o output.txt`.
 
 Replaces the reference's main.c + orchestrator (main.c:13-56,
-cpu_funcs.c:25-121) for one query: read input, search, write output, print
-the wall time.  Same output bytes and exit codes as the JAX package's `psa`
-single-query mode: 0 found, 1 no mutation (the unmodified Seq2 is written
-with offset -1), 2 bad usage or input.  Runs on the card unless
-`--device cpu` is given.
+cpu_funcs.c:25-121): read input, search, write output, print the wall
+time.  `--batch` runs every case record of the input file through the
+batch path, one output file each (`-o` names the directory).  Same output
+bytes and exit codes as the JAX package's `psa`: 0 found, 1 no mutation
+(the unmodified Seq2 is written with offset -1; in batch mode, any case
+without one), 2 bad usage or input.  Runs on the card unless `--device cpu`
+is given.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the N-th embedded case record of a scratchpad "
                         "input file (N=0 is the record the reference itself "
                         "would run)")
+    p.add_argument("--batch", action="store_true",
+                   help="run EVERY embedded case record: queries are "
+                        "bucketed by padded shape and streamed through the "
+                        "batched device path; -o names a directory "
+                        "receiving out_0000.txt, out_0001.txt, ...")
     p.add_argument("--json", action="store_true",
                    help="print one JSON object to stdout (offset, char "
                         "position, substitute, score, mutant, time) instead "
@@ -61,6 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.batch:
+        return _main_batch(args)
 
     from psa_torch.core.result import NoMutationFound
     from psa_torch.models.search import AlignmentSearchEngine
@@ -131,9 +140,13 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _result_json(query, res, elapsed: float | None = None) -> str:
+def _result_json(query, res, elapsed: float | None = None,
+                 case: int | None = None) -> str:
     """One machine-readable result object (None result = no mutation)."""
-    obj: dict = {"mutation_found": res is not None}
+    obj: dict = {}
+    if case is not None:
+        obj["case"] = case
+    obj["mutation_found"] = res is not None
     if res is not None:
         obj.update(offset=res.offset, char_offset=res.char_offset,
                    substitute=res.sub_char, score=res.score,
@@ -149,6 +162,75 @@ def _result_json(query, res, elapsed: float | None = None) -> str:
     if not np.isfinite(obj["score"]):
         obj["score"] = "%g" % obj["score"]
     return json.dumps(obj)
+
+
+def _main_batch(args) -> int:
+    """Batch mode: run every embedded case record, one output file each."""
+    import os
+
+    from psa_torch.models.batch import search_batch
+    from psa_torch.models.search import resolve_device
+    from psa_torch.utils.io import format_output, read_cases
+
+    try:
+        cases = read_cases(args.input)
+    except FileNotFoundError:
+        print(f"error: cannot open input file `{args.input}`", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"error: bad input file `{args.input}`: {e}", file=sys.stderr)
+        return 2
+
+    outdir = args.output
+    if outdir.endswith(".txt"):
+        outdir = outdir[: -len(".txt")]
+    os.makedirs(outdir, exist_ok=True)
+
+    device = None
+    if args.backend == "torch":
+        try:
+            # "cuda" = the card, which raises when there is none
+            device = resolve_device(None if args.device == "cuda"
+                                    else args.device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+    t0 = time.perf_counter()
+    try:
+        results = search_batch(cases, backend=args.backend,
+                               strict_alphabet=not args.lenient,
+                               device=device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - t0
+
+    n_missing = 0
+    for i, (q, res) in enumerate(zip(cases, results)):
+        path = os.path.join(outdir, f"out_{i:04d}.txt")
+        with open(path, "w") as f:
+            if res is None:
+                n_missing += 1
+                bad = float("-inf") if q.is_max else float("inf")
+                f.write(format_output(q.seq2, -1, bad))
+            else:
+                f.write(format_output(res.mutant(q.seq2), res.offset,
+                                      res.score))
+        if args.json:
+            print(_result_json(q, res, case=i))
+        if args.explain and res is not None:
+            from psa_torch.utils.pretty import pretty_print
+
+            print(f"--- case {i} ---", file=sys.stderr)
+            pretty_print(q, res, file=sys.stderr)
+    if not args.quiet:
+        print(f"{len(cases)} cases -> {outdir}/ "
+              f"({n_missing} without mutation)", file=sys.stderr)
+        if not args.json:
+            print("total time: %g" % elapsed)
+    # same contract as single-case mode: no-mutation cases signal exit 1
+    return 1 if n_missing else 0
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Tests of the port that need the card: the CUDA sweep kernel against its
-plain PyTorch version, and the engine on the card against the host oracle.
+"""Tests of the port that need the card: the CUDA sweep kernels against
+their plain PyTorch versions, and the engine and the batch path on the card
+against the host oracle.
 They skip without a CUDA device.  This file imports neither JAX nor psa_tpu,
 so it also runs where JAX is not installed:
 
@@ -10,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from psa_torch.core.alphabet import OTHER_CODE
+from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE
 from psa_torch.core.tables import build_tables
+from psa_torch.models import batch
 from psa_torch.models.search import AlignmentSearchEngine
 from psa_torch.ops import sweep as sw
 from psa_torch.utils.generator import random_sequences
+from psa_torch.utils.io import Query
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +71,62 @@ def test_north_star_on_card(cuda):
     assert (res.offset, res.char_offset, res.sub_code, res.score) == (
         84944, 10, 10, -21596.0)
     assert sw.launches == before + 1
+
+
+def batch_rows(rng, b, n1, n2, other, ragged):
+    """(c1b, c2b) uint8 of b queries padded to the bucket of (n1, n2);
+    ragged rows are shorter by up to a third."""
+    _, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
+    c1b = np.full((b, l1k), PAD_CODE, np.uint8)
+    c2b = np.full((b, l2p), PAD_CODE, np.uint8)
+    for q in range(b):
+        m1 = n1 - (rng.integers(0, n1 // 3) if ragged else 0)
+        m2 = min(m1, n2 - (rng.integers(0, n2 // 3) if ragged else 0))
+        c1b[q, :m1] = codes(rng, m1, other)
+        c2b[q, :m2] = codes(rng, m2, other)
+    return c1b, c2b
+
+
+@pytest.mark.parametrize("b,n1,n2,other,ragged", [(64, 2048, 512, False, False),
+                                                  (37, 3000, 700, True, True)])
+def test_batched_kernels_match_plain(cuda, b, n1, n2, other, ragged):
+    """Both batched kernels, all 8 rows integer-equal to their plain
+    versions; the shared kernel equal to the per-row one on broadcast
+    rows."""
+    rng = np.random.default_rng(b + n1)
+    c1b, c2b = batch_rows(rng, b, n1, n2, other, ragged)
+    code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]),
+                                         False).code).to(cuda)
+    d1 = torch.from_numpy(c1b).to(cuda)
+    d2 = torch.from_numpy(c2b).to(cuda)
+    before = (sw.launches_batched, sw.launches_batched_shared)
+    got = sw.sweep_batched(d1, d2, code)
+    shared = sw.sweep_batched_shared(d1[0].contiguous(), d2, code)
+    torch.cuda.synchronize()
+    assert (sw.launches_batched, sw.launches_batched_shared) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, sw.sweep_batched_plain(d1, d2, code))
+    assert torch.equal(shared, sw.sweep_batched_shared_plain(d1[0].contiguous(),
+                                                             d2, code))
+    broadcast = d1[:1].expand(b, -1).contiguous()
+    assert torch.equal(shared, sw.sweep_batched(broadcast, d2, code))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_search_batch_on_card_matches_numpy(cuda, shared, monkeypatch):
+    """32 queries in two buckets (the modes), each streamed as two
+    microbatches in flight together."""
+    monkeypatch.setattr(batch.CONFIG, "micro_batch", 8)
+    rng = np.random.default_rng(31 + shared)
+    queries = []
+    for q in range(32):
+        s1, s2 = random_sequences(2048, 512 - 3 * (q % 4), seed=int(rng.integers(1 << 30)))
+        if shared and queries:
+            s1 = queries[0].seq1
+        queries.append(Query(np.array([1.0, 3.0, 4.0, 2.0]), s1, s2, q % 2 == 0))
+    before = (sw.launches_batched, sw.launches_batched_shared)
+    got = batch.search_batch(queries)
+    want = batch.search_batch(queries, backend="numpy")
+    assert got == want
+    after = (sw.launches_batched, sw.launches_batched_shared)
+    assert after[1] - before[1] == 4 if shared else after[0] - before[0] == 4

@@ -10,8 +10,10 @@ the kernels' launch counts zeroed just before it and read just after:
   the 100k x 10k north-star size;
 - the exact batch path (`search_batch` and `psa_torch.utils.cli --batch`)
   on 1024 queries of 2048 x 512, per-row and with one shared Seq1, and on
-  8192 per-row queries (8 microbatches in flight).
-Times the kernels, their plain versions and both paths' phases with CUDA
+  8192 per-row queries (8 microbatches in flight);
+- the kernel lab (`psa_torch.utils.kernel_lab`): v1, v2 and v3 in turns
+  with `--check` at 131072 x 8192, and its command line once at 100k x 10k.
+Times the kernels, their plain versions and the paths' phases with CUDA
 events and synchronised host clocks, and prints one JSON line per phase.
 The second-to-last line lists each ported kernel; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -20,6 +22,8 @@ Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import shutil
 import statistics
@@ -44,6 +48,11 @@ NORTH_STAR_WINNER = (84944, 10, 10, -21596.0)
 # against the one Seq1 of seed 0.
 BATCH = dict(b=1024, n1=2048, n2=512, weights=(1.0, 3.0, 4.0, 2.0), is_max=False)
 
+# The kernel lab's query (benchmarks/kernel_lab.py's defaults, the bench.py
+# shape): random_sequences(131072, 8192, seed=0), weights 1 3 4 2, minimum;
+# each variant timed over 16 launches, in turns over 3 rounds.
+LAB = dict(n1=131_072, n2=8192, iters=16, rounds=3)
+
 # Published H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM
 # 3.35 TB/s; 67 TFLOP/s fp32 = 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz.  An
 # SM has half as many INT32 lanes (64), so the INT32 rate is a quarter of
@@ -51,9 +60,23 @@ BATCH = dict(b=1024, n1=2048, n2=512, weights=(1.0, 3.0, 4.0, 2.0), is_max=False
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
-# The least work per (offset, position) pair: one shared-memory table read
-# and three integer ops (address, accumulate, max).
+# The least work per (offset, position) pair on the table route (csrc/sweep.cu
+# and csrc/sweep_batched.cu): one shared-memory table read and three integer
+# ops (address, accumulate, max).
 INT_OPS_PER_PAIR = 3
+# The tensor-core route of the lab's sweeps (csrc/sweep_mma.cu): per pair, a
+# 32-deep int8 product (64 ops) at the dense int8 peak, one band byte written
+# to and read from shared memory (128 bytes per SM per clock), and the
+# decode's INT32 ops (DECODE_OPS_PER_WORD of ops/_sweep_v2.py and
+# ops/_sweep_v3.py, per 4 pairs).
+INT8_TC_OPS_PER_S = 1979e12
+TC_OPS_PER_PAIR = 64
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
+# An SM dispatches one warp instruction per clock from each of its four
+# schedulers: the time to dispatch a kernel's main-loop instructions (its
+# SASS mix per pair) is a floor of that kernel as compiled, not of the
+# function.
+WARP_DISPATCH_PER_S = 132 * 4 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -87,6 +110,28 @@ def batched_bound(noffs, n2s, l1_bytes: int, c2b_bytes: int, noff_pad: int):
                        8 * 4 * noff_pad * len(noffs))
 
 
+def lab_bound(mod, noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
+    """(bound_ms, bound_by, terms) of a lab sweep on its own route, over
+    this run's real pairs: the largest of the HBM bytes (codes in, 8 rows
+    out), the tensor-core ops, the band's shared-memory bytes and the
+    decode's INT32 ops."""
+    pairs = float(noff) * n2
+    terms = {"hbm_ms": (l1k + l2p + 32 * 32 + 8 * 4 * noff_pad) / HBM_BYTES_PER_S * 1e3,
+             "tensor_core_ms": pairs * TC_OPS_PER_PAIR / INT8_TC_OPS_PER_S * 1e3,
+             "smem_band_ms": pairs * 2 / SMEM_BYTES_PER_S * 1e3,
+             "decode_ms": pairs * mod.DECODE_OPS_PER_WORD / 4 / INT32_OPS_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    return (terms[top], "bytes" if top in ("hbm_ms", "smem_band_ms") else "operations",
+            terms)
+
+
+def dispatch_ms(sass: dict, kernel: str, pairs: float):
+    """ms to dispatch `kernel`'s main-loop instructions for `pairs` pairs at
+    WARP_DISPATCH_PER_S; None where the loop's pairs are not known."""
+    per_pair = sass.get(kernel, {}).get("per_pair")
+    return pairs * per_pair / 32 / WARP_DISPATCH_PER_S * 1e3 if per_pair else None
+
+
 def cuda_ms(torch, fn, runs: int, warm: int = 2):
     """(median, p25, p75) device ms of fn() over `runs` runs, CUDA events
     around each run."""
@@ -112,13 +157,15 @@ def random_codes(rng, n: int, hyphen_p: float = 0.0, other_p: float = 0.0):
     return codes
 
 
-def zero_launches(sw) -> None:
+def zero_launches(sw, v2, v3) -> None:
     sw.launches = sw.launches_batched = sw.launches_batched_shared = 0
+    v2.launches_v2 = v3.launches_v3 = 0
 
 
-def read_launches(sw) -> dict:
+def read_launches(sw, v2, v3) -> dict:
     return {"sweep": sw.launches, "sweep_batched": sw.launches_batched,
-            "sweep_batched_shared": sw.launches_batched_shared}
+            "sweep_batched_shared": sw.launches_batched_shared,
+            "sweep_v2": v2.launches_v2, "sweep_v3": v3.launches_v3}
 
 
 def padded_batch(rng, sw, b: int, n1: int, n2: int, hyphen_p: float = 0.0,
@@ -182,6 +229,85 @@ def batched_kernel_checks(torch, sw, code, dev):
                   sw.sweep_batched(broadcast, d2, code),
                   [b, c1b.shape[1], c2b.shape[1]])
     return worst, big
+
+
+def lab_kernel_checks(torch, sw, v2, v3, code, dev):
+    """The lab's tensor-core sweeps against their plain versions on the
+    card, all 8 rows (tolerance 0: every statistic is an exact integer); v3
+    on clean inputs only.  Returns {kernel: max_abs_diff} or raises."""
+    rng = np.random.default_rng(303)
+    worst = {"sweep_v2": 0, "sweep_v3": 0}
+    for case, n1, n2, hp, op in (("ragged", 1000, 137, 0.05, 0.0),
+                                 ("bench", LAB["n1"], LAB["n2"], 0.0, 0.0),
+                                 ("north_star", 100_000, 10_000, 0.0, 0.0),
+                                 ("long_seq1", 400_000, 2048, 0.0, 0.0),
+                                 ("lenient", 50_000, 3000, 0.05, 0.05)):
+        noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
+        d1 = sw.upload_codes(random_codes(rng, n1, hp, op), l1k, dev)
+        d2 = sw.upload_codes(random_codes(rng, n2, hp, op), l2p, dev)
+        kernels = [("sweep_v2", v2.sweep_v2, v2.sweep_v2_plain)]
+        if op == 0.0:
+            kernels.append(("sweep_v3", v3.sweep_v3, v3.sweep_v3_plain))
+        for kernel, fn, plain in kernels:
+            got = fn(d1, d2, code)
+            torch.cuda.synchronize()
+            diff = int((got.long() - plain(d1, d2, code).long()).abs().max().item())
+            worst[kernel] = max(worst[kernel], diff)
+            emit({"phase": "lab_kernel_vs_plain", "kernel": kernel, "case": case,
+                  "n1": n1, "n2": n2, "noff_pad": noff_pad, "l2p": l2p,
+                  "max_abs_diff": diff, "tolerance": 0,
+                  "rows4_sum": int(got[:4, :noff].sum().item())})
+            if diff != 0:
+                raise AssertionError(f"{kernel} disagrees with its plain version "
+                                     f"at {case}")
+    return worst
+
+
+def lab_cli_beside_oracle(kernel_lab):
+    """Run `python -m psa_torch.utils.kernel_lab --variant v3` at 100k x 10k
+    with --check as a process while this process computes the oracle of the
+    lab's query (both on the host).  Returns the phase's JSON object; the
+    process is stopped whatever happens."""
+    argv = ["--variant", "v3", "--n1", "100000", "--n2", "10000", "--check"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "psa_torch.utils.kernel_lab",
+                             *argv], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        kernel_lab.oracle(LAB["n1"], LAB["n2"])
+        oracle_s = time.perf_counter() - t0
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    return {"phase": "lab_cli", "argv": argv, "rc": proc.returncode,
+            "result": lines[-1] if lines else None,
+            "seconds": time.perf_counter() - t0, "oracle_s": oracle_s,
+            "stderr_tail": err[-400:]}
+
+
+def lab_rounds(kernel_lab):
+    """`kernel_lab.main` with --check for v1, v2 and v3 in turns over
+    LAB["rounds"] rounds; returns {variant: [ms per round]} or raises."""
+    ms = {v: [] for v in ("v1", "v2", "v3")}
+    for r in range(LAB["rounds"]):
+        for v in ms:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = kernel_lab.main(["--variant", v, "--n1", str(LAB["n1"]),
+                                      "--n2", str(LAB["n2"]),
+                                      "--iters", str(LAB["iters"]), "--check"])
+            lines = buf.getvalue().strip().splitlines()
+            fields = lines[-1].split() if lines else []
+            emit({"phase": "lab_round", "round": r, "variant": v, "rc": rc,
+                  "result": lines[-1] if lines else None})
+            if rc != 0 or fields[:2] != ["RESULT", v]:
+                raise AssertionError(f"kernel_lab --variant {v} --check failed "
+                                     f"(rc {rc})")
+            ms[v].append(float(fields[-1]))
+    return ms
 
 
 def batch_queries(Query, random_sequences, shared: bool, b: int = BATCH["b"]):
@@ -278,6 +404,7 @@ def traced_busy(torch, fn):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "psa_torch" / "csrc" / "sweep.cu").is_file():
         return fail(f"no psa_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
@@ -291,8 +418,10 @@ def main() -> int:
     from psa_torch.core.tables import build_tables, device_tables
     from psa_torch.models import batch
     from psa_torch.models.search import AlignmentSearchEngine
+    from psa_torch.ops import _sweep_v2 as v2
+    from psa_torch.ops import _sweep_v3 as v3
     from psa_torch.ops import sweep as sw
-    from psa_torch.utils import generator
+    from psa_torch.utils import generator, kernel_lab
     from psa_torch.utils.generator import random_sequences, write_input_file
     from psa_torch.utils.io import Query, format_output
 
@@ -316,9 +445,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     logs = sorted((sw._BUILD_DIR).glob("*.log"))
     ptxas = [ln.strip() for ln in (logs[-1].read_text().splitlines() if logs else [])
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit({"phase": "build", "seconds": build_s, "library": Path(lib._name).name,
           "ptxas": ptxas})
+    sass = kernel_lab.sass_loop_mix(kernel_lab.sass_of(lib._name))
+    emit({"phase": "sass_loop_mix", "kernels": sass})
 
     # 3. kernel vs plain version, on the card: all 8 rows integer-equal
     # (tolerance 0: every statistic is an exact integer)
@@ -349,6 +480,7 @@ def main() -> int:
             return fail(f"kernel disagrees with its plain version at {name}")
     try:
         batched_abs, (big1, big2) = batched_kernel_checks(torch, sw, code, dev)
+        lab_abs = lab_kernel_checks(torch, sw, v2, v3, code, dev)
     except AssertionError as e:
         return fail(str(e))
 
@@ -356,7 +488,7 @@ def main() -> int:
     # around it only
     s1, s2 = random_sequences(NORTH_STAR["n1"], NORTH_STAR["n2"],
                               seed=NORTH_STAR["seed"])
-    zero_launches(sw)
+    zero_launches(sw, v2, v3)
     eng = AlignmentSearchEngine(NORTH_STAR["weights"], NORTH_STAR["is_max"],
                                 backend="torch")
     t0 = time.perf_counter()
@@ -403,7 +535,7 @@ def main() -> int:
               "n1": n1, "n2": n2, "card": list(ta), "numpy": list(tb)})
         if ta != tb:
             return fail(f"card {ta} != numpy {tb}")
-    single_launches = read_launches(sw)
+    single_launches = read_launches(sw, v2, v3)
     emit({"phase": "main_path_launches", "path": "single_query", **single_launches})
     if single_launches["sweep"] < 1 + len(queries):
         return fail("the single-query path did not go through the sweep kernel")
@@ -419,7 +551,7 @@ def main() -> int:
     # 1024 are the per-row workload
     wide = batch_queries(Query, random_sequences, shared=False, b=8 * BATCH["b"])
     bres, first = {}, {}
-    zero_launches(sw)
+    zero_launches(sw, v2, v3)
     for name, qs in bq.items():
         t0 = time.perf_counter()
         bres[name] = search_batch(qs)
@@ -427,7 +559,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wide_res = search_batch(wide)
     wide_s = time.perf_counter() - t0
-    batch_launches = read_launches(sw)
+    batch_launches = read_launches(sw, v2, v3)
     emit({"phase": "main_path_launches", "path": "batch", **batch_launches})
     if batch_launches["sweep_batched"] < 1 or batch_launches["sweep_batched_shared"] < 1:
         return fail("the batch path did not go through both batched kernels")
@@ -474,6 +606,26 @@ def main() -> int:
     if not cli_batch_ok:
         return fail("psa-torch --batch differs from its numpy backend")
 
+    # 4c. the kernel-lab path: its command line once, beside this process's
+    # oracle of the lab's query; then v1, v2 and v3 in turns with --check,
+    # the launch counts read around the rounds only
+    lab_cli = lab_cli_beside_oracle(kernel_lab)
+    emit(lab_cli)
+    if lab_cli["rc"] != 0 or not (lab_cli["result"] or "").startswith("RESULT v3 "):
+        return fail("python -m psa_torch.utils.kernel_lab --variant v3 failed")
+    zero_launches(sw, v2, v3)
+    try:
+        lab_ms = lab_rounds(kernel_lab)
+    except AssertionError as e:
+        return fail(str(e))
+    lab_launches = read_launches(sw, v2, v3)
+    emit({"phase": "main_path_launches", "path": "kernel_lab", **lab_launches})
+    if min(lab_launches[k] for k in ("sweep", "sweep_v2", "sweep_v3")) < 1:
+        return fail("the kernel lab did not go through the v1, v2 and v3 kernels")
+    emit({"phase": "lab_interleaved_ms", "n1": LAB["n1"], "n2": LAB["n2"],
+          "iters": LAB["iters"], "rounds": LAB["rounds"], **lab_ms,
+          "median": {v: statistics.median(t) for v, t in lab_ms.items()}})
+
     # 5. times on the card
     timings = {}
     for name, n1, n2 in (("bench", 131072, 8192), ("north_star", 100_000, 10_000),
@@ -495,6 +647,7 @@ def main() -> int:
               "pair_evals_per_s": pairs / (k_ms * 1e-3),
               "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
               "bound_ms": bound_ms, "bound_by": bound_by,
+              "dispatch_ms": dispatch_ms(sass, "sweep_kernel", pairs),
               "runs": 20, "plain_runs": 10})
 
     c1n, c2n = encode(s1), encode(s2)
@@ -607,7 +760,35 @@ def main() -> int:
           "device_busy_share": busy_ms / traced_ms if busy_ms > 0 else None,
           "device_top": top})
 
+    # 5c. the lab's sweeps at the lab's shape and the north star: kernel,
+    # plain version and the bound of their route
+    lab_times = {}
+    for name, n1, n2 in (("bench", LAB["n1"], LAB["n2"]),
+                         ("north_star", 100_000, 10_000)):
+        noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
+        d1 = sw.upload_codes(random_codes(rng, n1), l1k, dev)
+        d2 = sw.upload_codes(random_codes(rng, n2), l2p, dev)
+        for kernel, mod, fn, plain, compiled in (
+                ("sweep_v2", v2, v2.sweep_v2, v2.sweep_v2_plain,
+                 "sweep_mma_kernel<false>"),
+                ("sweep_v3", v3, v3.sweep_v3, v3.sweep_v3_plain,
+                 "sweep_mma_kernel<true>")):
+            k_ms, k_q1, k_q3 = cuda_ms(torch, lambda: fn(d1, d2, code), runs=20)
+            p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: plain(d1, d2, code),
+                                       runs=5, warm=1)
+            bound_ms, bound_by, terms = lab_bound(mod, noff, n2, l1k, l2p, noff_pad)
+            lab_times[kernel, name] = dict(ms=k_ms, plain_ms=p_ms,
+                                           bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "lab_sweep_time", "kernel": kernel, "case": name,
+                  "n1": n1, "n2": n2, "kernel_ms": k_ms, "kernel_ms_iqr": [k_q1, k_q3],
+                  "pair_evals_per_s": float(noff) * n2 / (k_ms * 1e-3),
+                  "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bound_terms_ms": terms,
+                  "dispatch_ms": dispatch_ms(sass, compiled, float(noff) * n2),
+                  "v1_ms_this_run": timings[name]["ms"], "runs": 20, "plain_runs": 5})
+
     # 6. the ported kernels
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     shape_b = f"{b}x{BATCH['n1']}x{BATCH['n2']}"
     emit({"kernels": [
@@ -629,7 +810,14 @@ def main() -> int:
          "launches": batch_launches["sweep_batched_shared"],
          "max_abs_err": batched_abs["sweep_batched_shared"],
          "max_abs_diff": batched_abs["sweep_batched_shared"], "shape": shape_b,
-         **ktimes["sweep_batched_shared"], "library_ms": None}]})
+         **ktimes["sweep_batched_shared"], "library_ms": None},
+        *({"name": kernel, "route": "cuda", "source": "psa_torch/csrc/sweep_mma.cu",
+           "replaces": replaces, "launches": lab_launches[kernel],
+           "max_abs_err": lab_abs[kernel], "max_abs_diff": lab_abs[kernel],
+           "shape": f"{LAB['n1']}x{LAB['n2']}", **lab_times[kernel, "bench"],
+           "library_ms": None}
+          for kernel, replaces in (("sweep_v2", "psa_tpu/ops/_sweep_v2.py:86"),
+                                   ("sweep_v3", "psa_tpu/ops/_sweep_v3.py:101")))]})
     # 7. last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -14,8 +14,10 @@ tensors and runs `sweep_plain` — the blocked gather of the JAX package's
 engine_xla, in torch — for CPU tensors.  `sweep_batched` and
 `sweep_batched_shared` do the same for B queries at once, (B, 8, noff_pad)
 (csrc/sweep_batched.cu; plain versions `sweep_batched_plain` and
-`sweep_batched_shared_plain`).  A failed build or launch raises; nothing
-falls back to the plain version.
+`sweep_batched_shared_plain`).  The kernel lab's tensor-core sweeps
+(csrc/sweep_mma.cu) have their wrappers in ops/_sweep_v2.py and
+ops/_sweep_v3.py and are built into the same library.  A failed build or
+launch raises; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from psa_torch.ops.common import round_up
 
 TILE_O = 1024    # offsets per thread block (csrc/sweep_core.cuh kTile)
 L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
+MMA_TILE = 256   # offsets per block of the lab's sweeps (csrc/sweep_mma.cu kTile)
+MMA_CHUNK = 64   # Seq2 positions per band (csrc/sweep_mma.cu kChunk)
 
 # Kernel launches made by each wrapper: plain integers a caller can zero and
 # read to show that a path went through the kernel.
@@ -126,22 +130,25 @@ def build_library() -> ctypes.CDLL:
                                + "\n".join(log))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.psa_sweep_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.psa_sweep_launch, lib.psa_sweep_v2_launch,
+               lib.psa_sweep_v3_launch):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     for fn in (lib.psa_sweep_batched_launch,
                lib.psa_sweep_batched_shared_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.psa_sweep_launch.restype = ctypes.c_int
-    lib.psa_sweep_tile.restype = ctypes.c_int
-    lib.psa_sweep_align.restype = ctypes.c_int
+    for fn in (lib.psa_sweep_tile, lib.psa_sweep_align,
+               lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk):
+        fn.restype = ctypes.c_int
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p
-    if (lib.psa_sweep_tile(), lib.psa_sweep_align()) != (TILE_O, L2_ALIGN):
+    if ((lib.psa_sweep_tile(), lib.psa_sweep_align(), lib.psa_sweep_mma_tile(),
+         lib.psa_sweep_mma_chunk()) != (TILE_O, L2_ALIGN, MMA_TILE, MMA_CHUNK)):
         raise RuntimeError("csrc tile constants disagree with ops/sweep.py")
     _lib = lib
     return lib
@@ -160,23 +167,27 @@ def _check_operands(**named):
         device = t.device
 
 
-def _check_lengths(l1k: int, l2p: int) -> int:
-    """noff_pad for Seq1 length l1k and padded Seq2 length l2p."""
+def _check_lengths(l1k: int, l2p: int, tile: int = TILE_O,
+                   align: int = L2_ALIGN) -> int:
+    """noff_pad for Seq1 length l1k and padded Seq2 length l2p, for a kernel
+    of `tile` offsets per block and Seq2 padded to `align`."""
     noff_pad = l1k - l2p
-    if l2p == 0 or l2p % L2_ALIGN or noff_pad <= 0 or noff_pad % TILE_O:
+    if l2p == 0 or l2p % align or noff_pad <= 0 or noff_pad % tile:
         raise ValueError(f"bad sweep shapes: l1k={l1k}, l2p={l2p} "
-                         f"(need l2p % {L2_ALIGN} == 0 and "
-                         f"(l1k - l2p) % {TILE_O} == 0)")
+                         f"(need l2p % {align} == 0 and "
+                         f"(l1k - l2p) % {tile} == 0)")
     return noff_pad
 
 
-def _check(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor):
-    """Validate the sweep's operands; returns (noff_pad, l2p)."""
+def check_single(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
+                 tile: int = TILE_O, align: int = L2_ALIGN):
+    """Validate a one-query sweep's operands for a kernel of `tile` offsets
+    per block and Seq2 padded to `align`; returns (noff_pad, l2p)."""
     _check_operands(c1=(c1, torch.uint8), c2=(c2, torch.uint8),
                     code=(code, torch.int8))
     if c1.dim() != 1 or c2.dim() != 1 or tuple(code.shape) != (32, 32):
         raise ValueError("expected c1 (l1k,), c2 (l2p,) and code (32, 32)")
-    return _check_lengths(c1.shape[0], c2.shape[0]), c2.shape[0]
+    return _check_lengths(c1.shape[0], c2.shape[0], tile, align), c2.shape[0]
 
 
 def _check_batched(c1: torch.Tensor, c2b: torch.Tensor, code: torch.Tensor,
@@ -193,8 +204,8 @@ def _check_batched(c1: torch.Tensor, c2b: torch.Tensor, code: torch.Tensor,
     return c2b.shape[0], _check_lengths(c1.shape[-1], c2b.shape[1])
 
 
-def _launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
-            code: torch.Tensor, out_shape: tuple, *batch: int):
+def launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
+           code: torch.Tensor, out_shape: tuple, *batch: int):
     """Run the kernel behind C entry point `entry` on c1's device and
     current stream into a new int32 `out_shape` tensor; `batch` is the
     batched entry points' B."""
@@ -219,12 +230,12 @@ def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tenso
     int8 fused table.  Codes must be < 32.  CUDA tensors go through the
     Hopper kernel, CPU tensors through `sweep_plain`."""
     global launches
-    noff_pad, _ = _check(c1, c2, code)
+    noff_pad, _ = check_single(c1, c2, code)
     if c1.device.type == "cpu":
         return sweep_plain(c1, c2, code)
     if c1.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1.device}")
-    out = _launch("psa_sweep_launch", c1, c2, code, (8, noff_pad))
+    out = launch("psa_sweep_launch", c1, c2, code, (8, noff_pad))
     launches += 1
     return out
 
@@ -242,8 +253,8 @@ def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
         return sweep_batched_plain(c1b, c2b, code)
     if c1b.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1b.device}")
-    out = _launch("psa_sweep_batched_launch", c1b, c2b, code,
-                  (b, 8, noff_pad), b)
+    out = launch("psa_sweep_batched_launch", c1b, c2b, code,
+                 (b, 8, noff_pad), b)
     launches_batched += 1
     return out
 
@@ -261,8 +272,8 @@ def sweep_batched_shared(c1: torch.Tensor, c2b: torch.Tensor,
         return sweep_batched_shared_plain(c1, c2b, code)
     if c1.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1.device}")
-    out = _launch("psa_sweep_batched_shared_launch", c1, c2b, code,
-                  (b, 8, noff_pad), b)
+    out = launch("psa_sweep_batched_shared_launch", c1, c2b, code,
+                 (b, 8, noff_pad), b)
     launches_batched_shared += 1
     return out
 
@@ -279,11 +290,13 @@ def _stats_from_codevals(codeval: torch.Tensor):
 
 
 def sweep_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
-                max_elems: int = 1 << 22) -> torch.Tensor:
+                max_elems: int = 1 << 22, tile: int = TILE_O,
+                align: int = L2_ALIGN) -> torch.Tensor:
     """The plain PyTorch version of `sweep`, on any device: gather each
     block of offsets' Seq1 windows, look the pairs up in the table, decode.
-    `max_elems` bounds one block's (offsets x l2p) gather."""
-    noff_pad, l2p = _check(c1, c2, code)
+    `max_elems` bounds one block's (offsets x l2p) gather; `tile` and
+    `align` are the padding of the kernel it stands for."""
+    noff_pad, l2p = check_single(c1, c2, code, tile, align)
     dev = c1.device
     code_flat = code.reshape(-1).to(torch.int32)
     c1l = c1.long()
@@ -332,16 +345,24 @@ def stats5_from_sweep(out: torch.Tensor) -> torch.Tensor:
                      dim=-2)
 
 
+def stats_via(sweep_fn, plan, codes1: np.ndarray, codes2: np.ndarray,
+              tables: ScoringTables, device):
+    """(counts (noff, 4) int32, maxrank (noff,) int32) on the host from
+    `sweep_fn` run on `device` over the codes padded as `plan(n1, n2)`
+    says."""
+    codes1 = np.asarray(codes1)
+    codes2 = np.asarray(codes2)
+    noff, _, l2p, l1k = plan(codes1.shape[0], codes2.shape[0])
+    code = torch.from_numpy(np.ascontiguousarray(tables.code)).to(device)
+    out = sweep_fn(upload_codes(codes1, l1k, device),
+                   upload_codes(codes2, l2p, device), code)
+    st = stats5_from_sweep(out)[:, :noff].cpu().numpy()
+    return st[:4].T.copy(), st[4].copy()
+
+
 def offset_stats(codes1: np.ndarray, codes2: np.ndarray,
                  tables: ScoringTables, device):
     """Per-offset (counts (noff, 4) int32, maxrank (noff,) int32) on the
     host, computed on `device` — offset_stats_pallas' counterpart.  Any Seq1
     length takes the same kernel."""
-    codes1 = np.asarray(codes1)
-    codes2 = np.asarray(codes2)
-    noff, _, l2p, l1k = plan_shapes(codes1.shape[0], codes2.shape[0])
-    code = torch.from_numpy(np.ascontiguousarray(tables.code)).to(device)
-    out = sweep(upload_codes(codes1, l1k, device),
-                upload_codes(codes2, l2p, device), code)
-    st = stats5_from_sweep(out)[:, :noff].cpu().numpy()
-    return st[:4].T.copy(), st[4].copy()
+    return stats_via(sweep, plan_shapes, codes1, codes2, tables, device)

@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA sweep kernels against
-their plain PyTorch versions, and the engine and the batch path on the card
-against the host oracle.
+their plain PyTorch versions, the engine, the batch path and the kernel lab
+on the card against the host oracle.
 They skip without a CUDA device.  This file imports neither JAX nor psa_tpu,
 so it also runs where JAX is not installed:
 
@@ -15,7 +15,10 @@ from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE
 from psa_torch.core.tables import build_tables
 from psa_torch.models import batch
 from psa_torch.models.search import AlignmentSearchEngine
+from psa_torch.ops import _sweep_v2 as v2
+from psa_torch.ops import _sweep_v3 as v3
 from psa_torch.ops import sweep as sw
+from psa_torch.utils import kernel_lab
 from psa_torch.utils.generator import random_sequences
 from psa_torch.utils.io import Query
 
@@ -51,6 +54,44 @@ def test_kernel_matches_plain(cuda, n1, n2, other):
     torch.cuda.synchronize()
     assert sw.launches == before + 1
     assert torch.equal(got, sw.sweep_plain(d1, d2, code))
+
+
+@pytest.mark.parametrize("variant,n1,n2,other", [
+    ("v2", 1000, 137, True), ("v2", 131072, 8192, False), ("v2", 50_000, 3000, True),
+    ("v3", 1000, 137, False), ("v3", 100_000, 10_000, False),
+    ("v3", 400_000, 2048, False)])
+def test_lab_kernels_match_plain(cuda, variant, n1, n2, other):
+    """The tensor-core sweeps, all 8 rows integer-equal to their plain
+    versions on the card; v3 only on clean inputs, its row 3 zero."""
+    mod, sweep, plain, count = {
+        "v2": (v2, v2.sweep_v2, v2.sweep_v2_plain, "launches_v2"),
+        "v3": (v3, v3.sweep_v3, v3.sweep_v3_plain, "launches_v3")}[variant]
+    rng = np.random.default_rng(n1 + n2 + 1)
+    tables = build_tables(np.array([2.0, 1.0, 5.0, 0.5]), True)
+    noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
+    d1 = sw.upload_codes(codes(rng, n1, other), l1k, cuda)
+    d2 = sw.upload_codes(codes(rng, n2, other), l2p, cuda)
+    code = torch.from_numpy(tables.code).to(cuda)
+    before = getattr(mod, count)
+    got = sweep(d1, d2, code)
+    torch.cuda.synchronize()
+    assert getattr(mod, count) == before + 1
+    assert torch.equal(got, plain(d1, d2, code))
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2", "v3"])
+def test_kernel_lab_on_card(cuda, variant, capsys):
+    """The lab's --check on the card at a small size: stats equal to the
+    oracle, a RESULT line, and the variant's kernel launched."""
+    before = (sw.launches, v2.launches_v2, v3.launches_v3)
+    assert kernel_lab.main(["--variant", variant, "--n1", "20000", "--n2", "1500",
+                            "--iters", "4", "--check"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
+        f"RESULT {variant} ")
+    after = (sw.launches, v2.launches_v2, v3.launches_v3)
+    k = ["v1", "v2", "v3"].index(variant)
+    assert after[k] - before[k] == 1 + 1 + 4     # --check, warm-up, timed
+    assert all(a == b for i, (a, b) in enumerate(zip(after, before)) if i != k)
 
 
 @pytest.mark.parametrize("weights,is_max", [((1.0, 3.0, 4.0, 2.0), False),

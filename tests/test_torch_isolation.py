@@ -22,7 +22,9 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|psa_tpu)\b", re.M)
 
 def test_import_leaves_no_jax_or_psa_tpu():
     code = ("import sys, psa_torch, psa_torch.utils.cli, psa_torch.models.batch, "
-            "psa_torch.utils.pretty, psa_torch.utils.generator, psa_torch.config; "
+            "psa_torch.utils.pretty, psa_torch.utils.generator, psa_torch.config, "
+            "psa_torch.ops._sweep_v2, psa_torch.ops._sweep_v3, "
+            "psa_torch.utils.kernel_lab; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'psa_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -36,7 +38,9 @@ def test_static_scan_finds_no_jax_or_psa_tpu_import():
                    if "_build" not in f.relative_to(ROOT).parts)
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
-    assert ROOT / "psa_torch" / "models" / "batch.py" in files
+    for f in ("models/batch.py", "ops/_sweep_v2.py", "ops/_sweep_v3.py",
+              "utils/kernel_lab.py"):
+        assert ROOT / "psa_torch" / f in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert offenders == []

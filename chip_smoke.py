@@ -13,8 +13,10 @@ the kernels' launch counts zeroed just before it and read just after:
   8192 per-row queries (8 microbatches in flight);
 - the kernel lab (`psa_torch.utils.kernel_lab`): v1, v2 and v3 in turns
   with `--check` at 131072 x 8192, and its command line once at 100k x 10k.
-Times the kernels, their plain versions and the paths' phases with CUDA
-events and synchronised host clocks, and prints one JSON line per phase.
+Times the kernels (one launch per pair of CUDA events, and
+KERNEL_BACK_TO_BACK launches per pair), their plain versions and the paths'
+phases with CUDA events and synchronised host clocks, and prints one JSON
+line per phase.
 The second-to-last line lists each ported kernel; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 Imports neither JAX nor the JAX package.
@@ -61,9 +63,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
 # The least work per (offset, position) pair on the table route (csrc/sweep.cu
-# and csrc/sweep_batched.cu): one shared-memory table read and three integer
-# ops (address, accumulate, max).
-INT_OPS_PER_PAIR = 3
+# and csrc/sweep_batched.cu): one shared-memory table read and two integer
+# ops, as the batched pair loop does it (one address add, and half an IADD3
+# and half a VIMNMX3: it accumulates and maxes two positions per
+# instruction).  At these rates the table reads bound the route.
+INT_OPS_PER_PAIR = 2
 # The tensor-core route of the lab's sweeps (csrc/sweep_mma.cu): per pair, a
 # 32-deep int8 product (64 ops) at the dense int8 peak, one band byte written
 # to and read from shared memory (128 bytes per SM per clock), and the
@@ -77,6 +81,11 @@ SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 # SASS mix per pair) is a floor of that kernel as compiled, not of the
 # function.
 WARP_DISPATCH_PER_S = 132 * 4 * 1.98e9
+# A kernel is timed two ways (see kernel_times): one launch per pair of
+# CUDA events, the `ms` of the kernels line, and this many launches per
+# pair, `ms_back_to_back`; the plain versions, which take 10-1000 ms, are
+# timed one call per pair.
+KERNEL_BACK_TO_BACK = 10
 
 
 def emit(obj) -> None:
@@ -104,10 +113,11 @@ def single_bound(noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
 
 
 def batched_bound(noffs, n2s, l1_bytes: int, c2b_bytes: int, noff_pad: int):
-    """`sweep_bound` of a batched sweep: every query's real pairs."""
+    """`sweep_bound` of a batched sweep: every query's real pairs, its
+    stats5 (5 rows) written once."""
     pairs = float(np.dot(np.asarray(noffs, np.float64), np.asarray(n2s, np.float64)))
     return sweep_bound(pairs, l1_bytes + c2b_bytes + 32 * 32,
-                       8 * 4 * noff_pad * len(noffs))
+                       5 * 4 * noff_pad * len(noffs))
 
 
 def lab_bound(mod, noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
@@ -132,9 +142,12 @@ def dispatch_ms(sass: dict, kernel: str, pairs: float):
     return pairs * per_pair / 32 / WARP_DISPATCH_PER_S * 1e3 if per_pair else None
 
 
-def cuda_ms(torch, fn, runs: int, warm: int = 2):
-    """(median, p25, p75) device ms of fn() over `runs` runs, CUDA events
-    around each run."""
+def cuda_ms(torch, fn, runs: int, warm: int = 2, back_to_back: int = 1):
+    """(median, p25, p75) device ms per call of fn() over `runs` runs, CUDA
+    events around each run of `back_to_back` calls.  With one call the
+    time includes the host's enqueue of the launch (the stream is idle when
+    the first event passes); more calls keep the stream fed and leave it
+    out."""
     for _ in range(warm):
         fn()
     times = []
@@ -142,12 +155,20 @@ def cuda_ms(torch, fn, runs: int, warm: int = 2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(back_to_back):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / back_to_back)
     q1, _, q3 = statistics.quantiles(times, n=4)
     return statistics.median(times), q1, q3
+
+
+def kernel_times(torch, fn, runs: int):
+    """`cuda_ms` of a kernel call at one launch per pair of events and at
+    KERNEL_BACK_TO_BACK launches per pair: ((median, p25, p75), (...))."""
+    return (cuda_ms(torch, fn, runs),
+            cuda_ms(torch, fn, runs, back_to_back=KERNEL_BACK_TO_BACK))
 
 
 def random_codes(rng, n: int, hyphen_p: float = 0.0, other_p: float = 0.0):
@@ -170,27 +191,44 @@ def read_launches(sw, v2, v3) -> dict:
 
 def padded_batch(rng, sw, b: int, n1: int, n2: int, hyphen_p: float = 0.0,
                  other_p: float = 0.0, ragged: bool = False):
-    """(c1b, c2b, noffs, n2s) of b random queries padded to the bucket of
-    (n1, n2); ragged rows are up to a third shorter."""
-    _, _, l2p, l1k = sw.plan_shapes(n1, n2)
-    c1b = np.full((b, l1k), 28, np.uint8)
-    c2b = np.full((b, l2p), 28, np.uint8)
+    """(c1b, c2b, noffs, n2s) of b random queries of the bucket of (n1, n2),
+    padded as `search_batch` pads it (`plan_bucket`); ragged rows are up to
+    a third shorter."""
+    l2p = sw.plan_shapes(n1, n2)[2]
     noffs, n2s = np.zeros(b, np.int64), np.zeros(b, np.int64)
     for q in range(b):
         m1 = n1 - (int(rng.integers(0, n1 // 3)) if ragged else 0)
-        m2 = min(m1, n2 - (int(rng.integers(0, n2 // 3)) if ragged else 0))
+        n2s[q] = min(m1, n2 - (int(rng.integers(0, n2 // 3)) if ragged else 0))
+        noffs[q] = m1 - n2s[q] + 1
+    _, l1k = sw.plan_bucket(noffs, l2p)
+    c1b = np.full((b, l1k), 28, np.uint8)
+    c2b = np.full((b, l2p), 28, np.uint8)
+    for q in range(b):
+        m1 = int(noffs[q] + n2s[q] - 1)
         c1b[q, :m1] = random_codes(rng, m1, hyphen_p, other_p)
-        c2b[q, :m2] = random_codes(rng, m2, hyphen_p, other_p)
-        noffs[q], n2s[q] = m1 - m2 + 1, m2
+        c2b[q, :n2s[q]] = random_codes(rng, int(n2s[q]), hyphen_p, other_p)
     return c1b, c2b, noffs, n2s
 
 
+def pad_offsets(torch, c1b, noff_pad: int, l2p: int):
+    """c1b (B, l1k) on the card, its Seq1 rows padded with PAD_CODE to
+    noff_pad + l2p (noff_pad at least the rows' own)."""
+    wide = torch.full((c1b.shape[0], noff_pad + l2p), 28, dtype=torch.uint8,
+                      device=c1b.device)
+    wide[:, :c1b.shape[1]] = c1b
+    return wide
+
+
 def batched_kernel_checks(torch, sw, code, dev):
-    """Both batched kernels against their plain versions on the card, all 8
-    rows (tolerance 0: every statistic is an exact integer).  Returns
-    ({kernel: max_abs_diff}, the B = 1024 of 2048 x 512 inputs) or raises."""
+    """Both batched kernels against their plain versions on the card, all 5
+    rows of stats5 (tolerance 0: every statistic is an exact integer), at
+    the batch workload's shape and at the work list's edges; the shared
+    kernel also against the per-row one on broadcast rows, and both
+    refusing a misaligned row.  Returns ({kernel: max_abs_diff}, the B =
+    1024 of 2048 x 512 inputs) or raises."""
     rng = np.random.default_rng(99)
     worst = {"sweep_batched": 0, "sweep_batched_shared": 0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def check(kernel, case, got, want, shape):
         torch.cuda.synchronize()
@@ -202,32 +240,57 @@ def batched_kernel_checks(torch, sw, code, dev):
         if diff != 0:
             raise AssertionError(f"{kernel} disagrees with its reference at {case}")
 
+    # one query's worth of warp slots at Seq2 rows of 1120 codes: a bucket
+    # of 4-tile queries just past it sweeps two segments per item
+    slots = sw.batched_plan(1120, sw.BATCH_TILE_O, 1, False)["blocks_per_sm"] * 4 * sms
     big = None
-    for case, b, n1, n2, hp, op, ragged in (
-            ("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"], 0.0, 0.0, False),
-            ("b8_20000x2000", 8, 20_000, 2000, 0.0, 0.0, False),
-            ("ragged_lenient", 48, 5000, 700, 0.05, 0.05, True)):
+    for case, b, n1, n2, hp, op, ragged, shared in (
+            ("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"], 0.0, 0.0, False, True),
+            ("b8_20000x2000", 8, 20_000, 2000, 0.0, 0.0, False, False),
+            ("ragged_lenient", 48, 5000, 700, 0.05, 0.05, True, False),
+            ("b16_100000x2048", 16, 100_000, 2048, 0.0, 0.0, False, True),
+            ("noff_1", 5, 300, 300, 0.0, 0.0, False, True),
+            ("noff_multiple_of_tile", 7, 967, 200, 0.0, 0.0, False, True),
+            ("b_1", 1, 3000, 500, 0.0, 0.0, False, True),
+            ("b_not_multiple_of_slots", 1111, 1000, 300, 0.0, 0.0, False, True),
+            ("seq2_segments", slots // 4 + 5, 2123, 1100, 0.0, 0.0, False, True),
+            ("seq2_split", 2, 5000, 4000, 0.0, 0.0, False, True)):
         c1b, c2b, _, _ = padded_batch(rng, sw, b, n1, n2, hp, op, ragged)
         d1 = torch.from_numpy(c1b).to(dev)
         d2 = torch.from_numpy(c2b).to(dev)
+        shape = list(c1b.shape) + [c2b.shape[1]]
+        plans = {k: sw.batched_plan(c2b.shape[1], c1b.shape[1] - c2b.shape[1], b, k)
+                 for k in (False, True)}
+        emit({"phase": "batched_plan", "case": case, "shape": shape,
+              "per_row": plans[False], "shared": plans[True]})
+        p = plans[False]
+        if ((case == "seq2_segments" and not (p["parts"] == 1 and p["segs_per_part"] > 1))
+                or (case == "seq2_split" and p["parts"] == 1)):
+            raise AssertionError(f"{case} did not take the work list it is for")
         check("sweep_batched", case, sw.sweep_batched(d1, d2, code),
-              sw.sweep_batched_plain(d1, d2, code), list(c1b.shape) + [c2b.shape[1]])
+              sw.sweep_batched_plain(d1, d2, code), shape)
         if big is None:
             big = (d1, d2)
-    for case, b, n1, n2 in (("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"]),
-                            ("b16_100000x2048", 16, 100_000, 2048)):
-        c1b, c2b, _, _ = padded_batch(rng, sw, b, n1, n2)
-        d1 = torch.from_numpy(c1b[0]).to(dev)
-        d2 = torch.from_numpy(c2b).to(dev)
-        got = sw.sweep_batched_shared(d1, d2, code)
-        check("sweep_batched_shared", case, got,
-              sw.sweep_batched_shared_plain(d1, d2, code),
-              [b, c1b.shape[1], c2b.shape[1]])
-        if case == "batch_2048x512":
-            broadcast = d1[None].expand(d2.shape[0], -1).contiguous()
-            check("sweep_batched_shared", "vs_sweep_batched_broadcast", got,
-                  sw.sweep_batched(broadcast, d2, code),
-                  [b, c1b.shape[1], c2b.shape[1]])
+        if shared:
+            row = d1[0].contiguous()
+            got = sw.sweep_batched_shared(row, d2, code)
+            check("sweep_batched_shared", case, got,
+                  sw.sweep_batched_shared_plain(row, d2, code), shape)
+            check("sweep_batched_shared", f"{case}_vs_sweep_batched_broadcast", got,
+                  sw.sweep_batched(row[None].expand(b, -1).contiguous(), d2, code),
+                  shape)
+    flat = torch.full((1 + 2 * 320,), 28, dtype=torch.uint8, device=dev)
+    for kernel, call in (
+            ("sweep_batched", lambda: sw.sweep_batched(flat[1:].view(2, 320),
+                                                       big[1][:2, :64].contiguous(), code)),
+            ("sweep_batched_shared", lambda: sw.sweep_batched_shared(
+                flat[1:321], big[1][:2, :64].contiguous(), code))):
+        try:
+            call()
+        except ValueError as e:
+            emit({"phase": "batched_misaligned", "kernel": kernel, "raised": str(e)})
+        else:
+            raise AssertionError(f"{kernel} took a misaligned Seq1 row")
     return worst, big
 
 
@@ -358,10 +421,11 @@ def batch_split(torch, batch, alphabet, queries, dtabs, shared: bool, runs: int)
         ok = (alphabet.validate_batch([q.seq1 for q in queries])
               & alphabet.validate_batch([q.seq2 for q in queries]))
         assert ok.all()
-        _, _, l2p, l1k = batch.plan_shapes(len(queries[0].seq1), len(queries[0].seq2))
+        _, _, l2p, _ = batch.plan_shapes(len(queries[0].seq1), len(queries[0].seq2))
+        noffs = np.array([len(q.seq1) - len(q.seq2) + 1 for q in queries], np.int32)
+        _, l1k = batch.plan_bucket(noffs, l2p)
         c1b = alphabet.encode_batch_padded([q.seq1 for q in queries], l1k)
         c2b = alphabet.encode_batch_padded([q.seq2 for q in queries], l2p)
-        noffs = np.array([len(q.seq1) - len(q.seq2) + 1 for q in queries], np.int32)
         n2s = np.array([len(q.seq2) for q in queries], np.int32)
         t.append(time.perf_counter())
         _, c1d = batch.upload_rows(c1b[0] if shared else c1b, dev)
@@ -635,20 +699,22 @@ def main() -> int:
         noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
         d1 = sw.upload_codes(c1, l1k, dev)
         d2 = sw.upload_codes(c2, l2p, dev)
-        k_ms, k_q1, k_q3 = cuda_ms(torch, lambda: sw.sweep(d1, d2, code), runs=20)
+        (k_ms, k_q1, k_q3), (k_bb, bb_q1, bb_q3) = kernel_times(
+            torch, lambda: sw.sweep(d1, d2, code), runs=20)
         p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: sw.sweep_plain(d1, d2, code),
                                    runs=10, warm=1)
         bound_ms, bound_by = single_bound(noff, n2, l1k, l2p, noff_pad)
         pairs = float(noff) * n2
-        timings[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+        timings[name] = dict(ms=k_ms, ms_back_to_back=k_bb, plain_ms=p_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "sweep_time", "case": name, "n1": n1, "n2": n2,
               "kernel_ms": k_ms, "kernel_ms_iqr": [k_q1, k_q3],
+              "kernel_ms_back_to_back": k_bb, "back_to_back_iqr": [bb_q1, bb_q3],
               "pair_evals_per_s": pairs / (k_ms * 1e-3),
               "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
               "bound_ms": bound_ms, "bound_by": bound_by,
               "dispatch_ms": dispatch_ms(sass, "sweep_kernel", pairs),
-              "runs": 20, "plain_runs": 10})
+              "runs": 20, "back_to_back": KERNEL_BACK_TO_BACK, "plain_runs": 10})
 
     c1n, c2n = encode(s1), encode(s2)
     noff, _, l2p, l1k = sw.plan_shapes(c1n.shape[0], c2n.shape[0])
@@ -697,30 +763,55 @@ def main() -> int:
           "device_top": top})
 
     # 5b. the batched kernels at the batch workload's shape (B = 1024 of
-    # 2048 x 512), their plain versions, and the batch path's phases
+    # 2048 x 512) at the batch path's padding (noff_pad 1792) and at whole
+    # 1024-offset blocks (2048), in turns; their plain versions; then the
+    # batch path's phases
     b = BATCH["b"]
-    noff_b, noff_pad_b, l2p_b, l1k_b = sw.plan_shapes(BATCH["n1"], BATCH["n2"])
-    big1_row = big1[0].contiguous()
+    noff_b, _, l2p_b, _ = sw.plan_shapes(BATCH["n1"], BATCH["n2"])
+    noff_pad_b, _ = sw.plan_bucket([noff_b], l2p_b)
+    wide1 = pad_offsets(torch, big1, 2048, l2p_b)
+    inputs = {noff_pad_b: (big1, big1[0].contiguous()),
+              2048: (wide1, wide1[0].contiguous())}
     ktimes = {}
-    for name, fn, plain, l1_bytes in (
-            ("sweep_batched", lambda: sw.sweep_batched(big1, big2, code),
-             lambda: sw.sweep_batched_plain(big1, big2, code), b * l1k_b),
-            ("sweep_batched_shared",
-             lambda: sw.sweep_batched_shared(big1_row, big2, code),
-             lambda: sw.sweep_batched_shared_plain(big1_row, big2, code), l1k_b)):
-        k_ms, k_q1, k_q3 = cuda_ms(torch, fn, runs=30)
-        p_ms, p_q1, p_q3 = cuda_ms(torch, plain, runs=10, warm=1)
-        bound_ms, bound_by = batched_bound([noff_b] * b, [BATCH["n2"]] * b,
-                                           l1_bytes, b * l2p_b, noff_pad_b)
-        ktimes[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
-        emit({"phase": "batched_sweep_time", "kernel": name, "b": b,
-              "n1": BATCH["n1"], "n2": BATCH["n2"], "kernel_ms": k_ms,
-              "kernel_ms_iqr": [k_q1, k_q3], "us_per_query": k_ms * 1e3 / b,
-              "pair_evals_per_s": b * noff_b * BATCH["n2"] / (k_ms * 1e-3),
-              "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              "runs": 30, "plain_runs": 10})
+    for name, compiled in (("sweep_batched", "sweep_batched_kernel<false>"),
+                           ("sweep_batched_shared", "sweep_batched_kernel<true>")):
+        fn = sw.sweep_batched if name == "sweep_batched" else sw.sweep_batched_shared
+        plain = (sw.sweep_batched_plain if name == "sweep_batched"
+                 else sw.sweep_batched_shared_plain)
+        rows = {pad: c1 if name == "sweep_batched" else row
+                for pad, (c1, row) in inputs.items()}
+        runs = {pad: [] for pad in rows}
+        for pad in (noff_pad_b, 2048, 2048, noff_pad_b):
+            runs[pad].append(kernel_times(torch, lambda: fn(rows[pad], big2, code),
+                                          runs=30))
+        p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: plain(rows[noff_pad_b], big2, code),
+                                   runs=10, warm=1)
+        for pad, got in runs.items():
+            k_ms = statistics.mean(one[0] for one, _ in got)
+            k_bb = statistics.mean(bb[0] for _, bb in got)
+            bound_ms, bound_by = batched_bound(
+                [noff_b] * b, [BATCH["n2"]] * b,
+                rows[pad].numel(), b * l2p_b, pad)
+            padded_pairs = float(b) * pad * l2p_b
+            if pad == noff_pad_b:
+                ktimes[name] = dict(ms=k_ms, ms_back_to_back=k_bb, plain_ms=p_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "batched_sweep_time", "kernel": name, "b": b,
+                  "n1": BATCH["n1"], "n2": BATCH["n2"], "noff_pad": pad,
+                  "path_padding": pad == noff_pad_b, "kernel_ms": k_ms,
+                  "kernel_ms_rounds": [list(one) for one, _ in got],
+                  "kernel_ms_back_to_back": k_bb,
+                  "back_to_back_rounds": [list(bb) for _, bb in got],
+                  "us_per_query": k_ms * 1e3 / b,
+                  "pair_evals_per_s": b * noff_b * BATCH["n2"] / (k_ms * 1e-3),
+                  "plain_ms": p_ms if pad == noff_pad_b else None,
+                  "plain_ms_iqr": [p_q1, p_q3] if pad == noff_pad_b else None,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "padded_pairs": padded_pairs,
+                  "dispatch_ms": dispatch_ms(sass, compiled, padded_pairs),
+                  "plan": sw.batched_plan(l2p_b, pad, b, name != "sweep_batched"),
+                  "runs": 2 * 30, "back_to_back": KERNEL_BACK_TO_BACK,
+                  "plain_runs": 10})
 
     dtabs_b = device_tables(build_tables(np.array(BATCH["weights"]),
                                          BATCH["is_max"]), dev)
@@ -773,24 +864,27 @@ def main() -> int:
                  "sweep_mma_kernel<false>"),
                 ("sweep_v3", v3, v3.sweep_v3, v3.sweep_v3_plain,
                  "sweep_mma_kernel<true>")):
-            k_ms, k_q1, k_q3 = cuda_ms(torch, lambda: fn(d1, d2, code), runs=20)
+            (k_ms, k_q1, k_q3), (k_bb, bb_q1, bb_q3) = kernel_times(
+                torch, lambda: fn(d1, d2, code), runs=20)
             p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: plain(d1, d2, code),
                                        runs=5, warm=1)
             bound_ms, bound_by, terms = lab_bound(mod, noff, n2, l1k, l2p, noff_pad)
-            lab_times[kernel, name] = dict(ms=k_ms, plain_ms=p_ms,
+            lab_times[kernel, name] = dict(ms=k_ms, ms_back_to_back=k_bb, plain_ms=p_ms,
                                            bound_ms=bound_ms, bound_by=bound_by)
             emit({"phase": "lab_sweep_time", "kernel": kernel, "case": name,
                   "n1": n1, "n2": n2, "kernel_ms": k_ms, "kernel_ms_iqr": [k_q1, k_q3],
+                  "kernel_ms_back_to_back": k_bb, "back_to_back_iqr": [bb_q1, bb_q3],
                   "pair_evals_per_s": float(noff) * n2 / (k_ms * 1e-3),
                   "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_terms_ms": terms,
                   "dispatch_ms": dispatch_ms(sass, compiled, float(noff) * n2),
-                  "v1_ms_this_run": timings[name]["ms"], "runs": 20, "plain_runs": 5})
+                  "v1_ms_this_run": timings[name]["ms"], "runs": 20,
+                  "back_to_back": KERNEL_BACK_TO_BACK, "plain_runs": 5})
 
     # 6. the ported kernels
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
-    shape_b = f"{b}x{BATCH['n1']}x{BATCH['n2']}"
+    shape_b = f"{b}x{BATCH['n1']}x{BATCH['n2']} (noff_pad {noff_pad_b})"
     emit({"kernels": [
         {"name": "sweep", "route": "cuda", "source": "psa_torch/csrc/sweep.cu",
          "replaces": "psa_tpu/ops/pallas_sweep.py:297",

@@ -50,7 +50,7 @@ sweep_kernel(const uint8_t* __restrict__ c1, int l1,
   stage_codes(s1, c1, l1, static_cast<long>(o0) + p0, kTile + seg);
   stage_codes(s2, c2, l2p, p0, seg);
   __syncthreads();
-  sweep_tile(tab, s1, s2, seg, out, noff_pad, o0, /*exclusive=*/false);
+  sweep_tile(tab, s1, s2, seg, out, noff_pad, o0);
 }
 
 }  // namespace

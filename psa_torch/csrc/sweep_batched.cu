@@ -1,45 +1,81 @@
-// Batched offset sweeps on Hopper (sm_90a): the single-query sweep's
-// statistics for B queries in one launch.
+// Batched offset sweeps on Hopper (sm_90a): the per-offset statistics of B
+// queries in one launch, written as the batch epilogue's stats5.
 //
-// Replaces two TPU kernels of psa_tpu/ops/pallas_sweep.py:
-//   * sweep_batched_kernel<false> replaces _sweep_kernel_batched (launched by
-//     _sweep_pallas_batched): every query has its own Seq1 row;
+// Replaces two TPU kernels of psa_tpu/ops/pallas_sweep.py, each with the
+// maxrank conversion that follows it (psa_tpu/models/batch.py
+// _fused_stats5_from_codes[_shared]):
+//   * sweep_batched_kernel<false> replaces _sweep_kernel_batched (:365,
+//     launched by _sweep_pallas_batched): every query has its own Seq1 row;
 //   * sweep_batched_kernel<true> replaces _sweep_kernel_batched_shared
-//     (launched by _sweep_pallas_batched_shared): the B queries share ONE
-//     Seq1 row, which a block stages once for all the queries it sweeps.
+//     (:492, launched by _sweep_pallas_batched_shared): the B queries share
+//     ONE Seq1 row.
 //
-// Contract (the TPU kernels' layout):
+// Contract:
 //   in   c1   (B, l1k) uint8 Seq1 codes, or one (l1k,) row when shared;
 //             l1k = noff_pad + l2p, PAD_CODE (28) past each sequence
 //        c2   (B, l2p) uint8 Seq2 codes, PAD_CODE past each sequence
 //        code (32, 32) int8 fused table, code[c1][c2]
-//   out  (B, 8, noff_pad) int32.  For query q and offset o, over i < l2p
-//        with v = code[c1_q[o + i]][c2_q[i]]: rows 0-3 count the i with
-//        v > 0 and (v - 1) & 3 == k, row 4 is max(v) (0 if none), rows 5-7
-//        are 0.  Exact integers: any order of the atomics gives the same bits.
+//   out  (B, 5, noff_pad) int32.  For query q and offset o, over i < l2p
+//        with v = code[c1_q[o + i] & 31][c2_q[i] & 31]: rows 0-3 count the i
+//        with v > 0 and (v - 1) & 3 == k; row 4 is the maxrank
+//        max(((max v - 1) >> 2) - 1, -1).  Exact integers: any order of the
+//        sums (and of the atomics) gives the same bits.
+//   noff_pad is a multiple of kGranule, l2p of kFlush; c1, c2 and out are
+//   16-byte aligned (the copies below are 16-byte bulk copies).
 //
-// What bounds it on this card: the same as the single-query sweep — one
-// shared-memory table read and three integer ops per (offset, position)
-// pair, while a code byte from device memory serves a whole tile, so the
-// INT32 issue rate bounds it (1024 queries of 2048 x 512: 8.1e8 pairs,
-// ~0.14 ms), not HBM (~70 MB in and out, ~0.02 ms).  The per-pair loop is
-// sweep_core.cuh's.  What the batch adds:
-//   * grid (offset tiles, Seq2 segments, query groups).  A block expands the
-//     code table once and then sweeps a GROUP of queries in turn, staging
-//     only what changes: each query's Seq1 window and Seq2 segment, or, in
-//     the shared kernel, only the Seq2 segment (the Seq1 window is staged
-//     once per block — the TPU kernel's once-per-tile window load).
-//   * The group size is chosen by the entry point so that the grid is one
-//     wave of resident blocks: at B = 1024 of 2048 x 512 (2 offset tiles) a
-//     block per (tile, query) would give 2048 blocks, more than the card
-//     holds at once, and a block per tile would share everything but use 2
-//     SMs of 132.  Folding the queries into groups also keeps grid.z under
-//     its 65,535 cap at any B.
-//   * Row offsets are 64-bit: B * l1k passes 2^31 at B = 8192, l1k = 262,144.
-//   * When Seq2 fits one segment (l2p <= kSeg) a block is the only writer of
-//     its offsets and stores all 8 rows, so the output needs no memset and no
-//     atomics; longer Seq2 is split over grid.y and meets in atomics on an
-//     output the entry point zeroes first.
+// What bounds it on this card: the shared-memory table reads, with the
+// INT32 issue rate as close.  Per (offset, position) pair the work is one
+// table read (32 lanes per SM per clock) and two integer ops (the pair loop
+// below: one address add, half an IADD3 and half a VIMNMX3), while a code
+// byte from device memory serves a whole tile: 1024 queries of 2048 x 512
+// hold 8.06e8 real pairs, 0.096 ms at the table-read rate (0.096 ms at the
+// INT32 rate too), against ~3 MB of codes in and 37 MB of stats out
+// (~0.012 ms of HBM).
+// What the design does about it:
+//   * Offset tiles that fit the bucket.  A tile is one warp's offsets
+//     (kGranule = 32 lanes x 8), so a bucket's offsets pad to its longest
+//     query in 256s: 1537 real offsets sweep 1792 padded ones (1.17x the
+//     pairs), not 2048 (1.33x) as whole 1024-offset blocks did.
+//   * A persistent grid over a static work list.  The grid holds as many
+//     blocks as the card has resident slots, and each warp is an
+//     independent worker.  The list holds one item per (tile, query), and
+//     each of the W workers takes one contiguous chunk of it, so no worker
+//     has more than one item above the average.  Items run query-fastest
+//     within a tile, so in the shared kernel a worker's chunk is a (tile,
+//     group of queries) whose one Seq1 window serves the whole group, and
+//     the group size (items / W, rounded up or down) is what makes the items
+//     cover every warp slot.  Warps, not 4-warp blocks on 1024-offset
+//     items, are the workers: one warp tile is one granule, so a bucket of
+//     7 tiles per query (1792 offsets) leaves no warp of a block idle; after
+//     the table is expanded no barrier spans more than one warp, so a warp
+//     that waits on its copy holds up no other; and the list stays
+//     fine-grained enough to balance the SMs.
+//   * Staging that overlaps the sweep.  Lane 0 of a warp copies the next
+//     step's Seq1 window and Seq2 segment into the other stage of a
+//     two-stage ring in shared memory with cp.async.bulk (Hopper's 1-D
+//     TMA), completing on that stage's mbarrier, while the warp sweeps the
+//     current step.  No thread spends an instruction per byte on staging,
+//     and no block-wide barrier stops the sweep.  Codes are masked to the
+//     table's 32 rows where they are read, so a stray byte never reads
+//     outside the table.
+//   * A compact write.  A lane's 8 consecutive offsets of a row are 32
+//     contiguous bytes: rows 0-4 go out as two 16-byte stores each, with
+//     row 4 converted to the maxrank in registers, so no pass over the
+//     output follows the kernel and no row of zeros is written.
+//   * Long Seq2.  An item sweeps Seq2 in segments of kSegB positions through
+//     the same ring and is the only writer of its offsets (a later segment
+//     adds into the rows its first one stored): no memset, no atomics.
+//     Only when a bucket has fewer items than warp slots (B = 1, or a few
+//     queries with long Seq2) is Seq2 split over workers, whose
+//     partial results meet in atomics on an output the entry point
+//     initialises.
+//   * The pair loop keeps sweep_core.cuh's expanded 32-bit table entry (a
+//     6-bit class field, the max code in the top byte, a drain every kFlush
+//     positions), its transposed table and its 8-offset register window,
+//     and takes positions two at a time so that one IADD3 and one VIMNMX3
+//     (Hopper's 3-input max) serve two pairs; the table is read through
+//     32-bit shared addresses, so each pair costs one address add (see
+//     sweep_step).
 
 #include "sweep_core.cuh"
 
@@ -47,72 +83,381 @@ using namespace psa;
 
 namespace {
 
+constexpr int kWarps = kThreads / 32;                  // workers per block
+constexpr int kGranule = 32 * kOffsetsPerThread;       // offsets per warp tile
+constexpr int kSegB = 1024;                            // Seq2 positions per step
+constexpr int kTableBytes = 32 * 32 * 4;
+
+// The work list of one launch (see the note at the head of the file).  An
+// item is one (tile, Seq2 part, query); item u is query u % b of (tile,
+// part) u / b, so a run of consecutive items sweeps one Seq1 window of the
+// shared kernel.
+struct Work {
+  const uint8_t* c1;        // Seq1 rows (one row when shared)
+  const uint8_t* c2;        // Seq2 rows
+  int32_t* out;
+  long l1k;
+  int l2p, noff_pad, b;
+  int ntiles;               // noff_pad / kGranule
+  int nseg;                 // Seq2 segments of kSegB positions
+  int seg_max;              // min(l2p, kSegB): a ring stage's Seq2 bytes
+  int parts, segs_per_part; // Seq2 split over workers (parts > 1: atomics)
+  long items;               // ntiles * parts * b
+};
+
+__host__ __device__ constexpr int warp_bytes(int seg_max) {
+  // two mbarriers, two Seq1 windows, two Seq2 segments
+  return 16 + 2 * (kGranule + seg_max) + 2 * seg_max;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of copies completing on `bar`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1], %2, [%3];"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// A worker's place in its list: the items [begin, end) of one contiguous
+// chunk, and within the current item the Seq2 segment of the current step.
+// Every lane keeps the same cursor.
+struct Cursor {
+  long u, begin, end;
+  int t, q, s, s_begin, s_end;
+
+  __device__ void start(const Work& wk, long worker, long workers) {
+    begin = worker * wk.items / workers;
+    end = (worker + 1) * wk.items / workers;
+    set(wk, begin);
+  }
+  __device__ void set(const Work& wk, long it) {
+    u = it;
+    if (u >= end) return;
+    q = static_cast<int>(u % wk.b);
+    const long rest = u / wk.b;
+    t = static_cast<int>(rest / wk.parts);
+    s_begin = s = static_cast<int>(rest % wk.parts) * wk.segs_per_part;
+    s_end = min(wk.nseg, s_begin + wk.segs_per_part);
+  }
+  __device__ void next(const Work& wk) {
+    if (++s < s_end) return;
+    set(wk, u + 1);
+  }
+  __device__ bool done() const { return u >= end; }
+  // The step needs its own Seq1 window unless it sweeps the window of the
+  // step before it: the next query of a shared-Seq1 run in one segment.
+  template <bool kShared>
+  __device__ bool new_window() const {
+    return !kShared || s_end - s_begin > 1 || u == begin || q == 0;
+  }
+};
+
+// Lane 0: start the copies of step `c` into a ring stage's Seq2 buffer `s2`
+// and, unless `win` is null (the step keeps the current window), into the
+// window buffer `win`; both complete on the stage's mbarrier `bar`.
+template <bool kShared>
+__device__ __forceinline__ void issue(const Work& wk, const Cursor& c,
+                                      uint8_t* win, uint8_t* s2,
+                                      uint64_t* bar) {
+  const int p0 = c.s * kSegB;
+  const uint32_t seg = min(kSegB, wk.l2p - p0);
+  // the async copies overwrite bytes this warp read through the generic
+  // proxy in the step before last
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  mbar_expect(bar, seg + (win ? kGranule + seg : 0));
+  bulk_copy(s2, wk.c2 + static_cast<long>(c.q) * wk.l2p + p0, seg, bar);
+  if (win) {
+    const uint8_t* row = kShared ? wk.c1 : wk.c1 + static_cast<long>(c.q) * wk.l1k;
+    bulk_copy(win, row + static_cast<long>(c.t) * kGranule + p0, kGranule + seg, bar);
+  }
+}
+
+// Byte k of x, zero-extended (one PRMT).
+__device__ __forceinline__ uint32_t byte_of(uint32_t x, int k) {
+  return __byte_perm(x, 0, 0x4440 + k);
+}
+
+// The 32-bit word at shared address `addr`.  The table is written once,
+// before the block's only barrier, so the load may be scheduled freely.
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t v;
+  asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// One step: this lane's kOffsetsPerThread offsets against `seg` staged Seq2
+// positions (a multiple of kFlush, at most kSegB).  `win` holds the
+// kGranule + seg Seq1 codes of the warp's tile, s2 the seg Seq2 codes.  On
+// return mx[j] is the largest table entry of offset j, and c02[j] / c13[j]
+// hold its class counts 0 and 2 / 1 and 3 in 12-bit fields at bits 0 and 12.
+//
+// Per pair: one address add, one shared load, and half of an IADD3 and of a
+// VIMNMX3 (positions are taken two at a time: acc += ea + eb,
+// mx = max(mx, ea, eb)).  The table row's shared address is made once per
+// position and the window holds codes premultiplied by 4, so the address
+// is one add; codes are read four to a word and masked to the table's 32
+// rows a word at a time.
+__device__ __forceinline__ void sweep_step(uint32_t tab_s, const uint8_t* win,
+                                           const uint8_t* s2, int seg,
+                                           uint32_t (&mx)[kOffsetsPerThread],
+                                           uint32_t (&c02)[kOffsetsPerThread],
+                                           uint32_t (&c13)[kOffsetsPerThread]) {
+  constexpr uint32_t kCodes = 0x1f1f1f1fu;
+  const int lane = threadIdx.x & 31;
+  // w1[n]: Seq1 codes lane * 8 + 4n .. + 3 of the window
+  const uint32_t* w1 = reinterpret_cast<const uint32_t*>(win + lane * kOffsetsPerThread);
+  const uint32_t* s2w = reinterpret_cast<const uint32_t*>(s2);
+  uint32_t w[kOffsetsPerThread];      // w[j] = 4 * code at lane * 8 + i + j
+  const uint32_t lo = (w1[0] & kCodes) << 2, hi = (w1[1] & kCodes) << 2;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = byte_of(lo, k);
+    w[4 + k] = byte_of(hi, k);
+  }
+#pragma unroll
+  for (int j = 0; j < kOffsetsPerThread; ++j) mx[j] = c02[j] = c13[j] = 0;
+  for (int i0 = 0; i0 < seg; i0 += kFlush) {
+    uint32_t acc[kOffsetsPerThread];
+#pragma unroll
+    for (int j = 0; j < kOffsetsPerThread; ++j) acc[j] = 0;
+#pragma unroll
+    for (int i4 = 0; i4 < kFlush / 4; ++i4) {
+      const uint32_t c2 = s2w[i0 / 4 + i4] & kCodes;
+      // 4 * codes lane * 8 + i + 8 for the 4 positions i of this word
+      const uint32_t c1 = (w1[i0 / 4 + i4 + 2] & kCodes) << 2;
+#pragma unroll
+      for (int k = 0; k < 4; k += 2) {
+        const uint32_t ra = tab_s + (byte_of(c2, k) << 7);      // row of position i
+        const uint32_t rb = tab_s + (byte_of(c2, k + 1) << 7);  // and of i + 1
+        const uint32_t na = byte_of(c1, k);
+#pragma unroll
+        for (int j = 0; j < kOffsetsPerThread; ++j) {
+          const uint32_t ea = lds(ra + w[j]);
+          const uint32_t eb = lds(rb + (j + 1 < kOffsetsPerThread ? w[j + 1] : na));
+          acc[j] += ea + eb;
+          mx[j] = __vimax3_u32(mx[j], ea, eb);
+        }
+#pragma unroll
+        for (int j = 0; j + 2 < kOffsetsPerThread; ++j) w[j] = w[j + 2];
+        w[kOffsetsPerThread - 2] = na;
+        w[kOffsetsPerThread - 1] = byte_of(c1, k + 1);
+      }
+    }
+    // drain the 6-bit fields (each at most kFlush) into 12-bit ones, which
+    // hold the kSegB positions of a step
+#pragma unroll
+    for (int j = 0; j < kOffsetsPerThread; ++j) {
+      c02[j] += acc[j] & 0x3f03fu;
+      c13[j] += (acc[j] >> 6) & 0x3f03fu;
+    }
+  }
+}
+
+// Rows 0-4 of this lane's offsets of query q, tile t after a step:
+// stored by the first step of an item, added to (counts) and maxed into
+// (maxrank) by its later steps, and, when Seq2 is split over workers,
+// added and maxed atomically into an output initialised to 0 and -1.
+__device__ __forceinline__ void write_stats(const Work& wk, int q, int t,
+                                            bool first,
+                                            const uint32_t (&mx)[kOffsetsPerThread],
+                                            const uint32_t (&c02)[kOffsetsPerThread],
+                                            const uint32_t (&c13)[kOffsetsPerThread]) {
+  int32_t* o = wk.out + static_cast<long>(q) * 5 * wk.noff_pad + t * kGranule
+               + (threadIdx.x & 31) * kOffsetsPerThread;
+  int v[5][kOffsetsPerThread];
+#pragma unroll
+  for (int j = 0; j < kOffsetsPerThread; ++j) {
+    v[0][j] = c02[j] & 0xfff;
+    v[1][j] = c13[j] & 0xfff;
+    v[2][j] = c02[j] >> 12;
+    v[3][j] = c13[j] >> 12;
+    v[4][j] = max(((static_cast<int>(mx[j] >> 24) - 1) >> 2) - 1, -1);
+  }
+  if (wk.parts > 1) {
+#pragma unroll
+    for (int j = 0; j < kOffsetsPerThread; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (v[r][j]) atomicAdd(o + static_cast<long>(r) * wk.noff_pad + j, v[r][j]);
+      }
+      if (v[4][j] >= 0) atomicMax(o + 4L * wk.noff_pad + j, v[4][j]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+    int4* p = reinterpret_cast<int4*>(o + static_cast<long>(r) * wk.noff_pad);
+    int4 a = make_int4(v[r][0], v[r][1], v[r][2], v[r][3]);
+    int4 b = make_int4(v[r][4], v[r][5], v[r][6], v[r][7]);
+    if (!first) {                      // this lane wrote them a step ago
+      const int4 pa = p[0], pb = p[1];
+      if (r < 4) {
+        a = make_int4(a.x + pa.x, a.y + pa.y, a.z + pa.z, a.w + pa.w);
+        b = make_int4(b.x + pb.x, b.y + pb.y, b.z + pb.z, b.w + pb.w);
+      } else {
+        a = make_int4(max(a.x, pa.x), max(a.y, pa.y), max(a.z, pa.z), max(a.w, pa.w));
+        b = make_int4(max(b.x, pb.x), max(b.y, pb.y), max(b.z, pb.z), max(b.w, pb.w));
+      }
+    }
+    p[0] = a;
+    p[1] = b;
+  }
+}
+
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
-sweep_batched_kernel(const uint8_t* __restrict__ c1, int l1k,
-                     const uint8_t* __restrict__ c2, int l2p,
-                     const int8_t* __restrict__ code,
-                     int32_t* __restrict__ out, int noff_pad, int b,
-                     int group) {
-  __shared__ uint32_t tab[32 * 32];          // tab[c2 * 32 + c1]
-  __shared__ uint8_t s1[kTile + kSeg];
-  __shared__ uint8_t s2[kSeg];
-
-  const int o0 = blockIdx.x * kTile;
-  const int p0 = blockIdx.y * kSeg;
-  const int seg = min(kSeg, l2p - p0);       // a multiple of kFlush
-  const bool exclusive = gridDim.y == 1;
-  const long start1 = static_cast<long>(o0) + p0;
-  const int q0 = blockIdx.z * group;
-  const int q1 = min(b, q0 + group);
+sweep_batched_kernel(const Work wk, const int8_t* __restrict__ code) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);   // tab[c2 * 32 + c1]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int win_bytes = kGranule + wk.seg_max;
+  uint8_t* mine = smem + kTableBytes + warp * warp_bytes(wk.seg_max);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(mine);   // one per ring stage
+  uint8_t* win = mine + 16;                            // [2][win_bytes]
+  uint8_t* s2 = win + 2 * win_bytes;                   // [2][seg_max]
 
   expand_table(tab, code);
-  if (kShared) stage_codes(s1, c1, l1k, start1, kTile + seg);
-  for (int q = q0; q < q1; ++q) {
-    if (q > q0) __syncthreads();             // the last query's reads are done
-    if (!kShared) {
-      stage_codes(s1, c1 + static_cast<long>(q) * l1k, l1k, start1, kTile + seg);
-    }
-    stage_codes(s2, c2 + static_cast<long>(q) * l2p, l2p, p0, seg);
-    __syncthreads();
-    sweep_tile(tab, s1, s2, seg, out + static_cast<long>(q) * 8 * noff_pad,
-               noff_pad, o0, exclusive);
+  if (lane == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  const long workers = static_cast<long>(gridDim.x) * kWarps;
+  Cursor cur, nxt;
+  cur.start(wk, static_cast<long>(warp) * gridDim.x + blockIdx.x, workers);
+  nxt = cur;
+  // The producer (lane 0) runs one step ahead of the sweep.  Step n uses
+  // ring stage n & 1, whose mbarrier completes once per use: its phase
+  // parity at step n is (n >> 1) & 1.  A Seq1 window goes to buffer
+  // (windows copied so far) & 1, which the steps two windows back have
+  // finished reading.
+  int windows_issued = 0, windows_swept = 0;
+  auto produce = [&](int stage) {
+    const bool nw = nxt.new_window<kShared>();
+    if (lane == 0) {
+      issue<kShared>(wk, nxt, nw ? win + (windows_issued & 1) * win_bytes : nullptr,
+                     s2 + stage * wk.seg_max, bar + stage);
+    }
+    windows_issued += nw;
+    nxt.next(wk);
+  };
+  if (!nxt.done()) produce(0);
+
+  const uint32_t tab_s = smem_u32(tab);
+  uint32_t mx[kOffsetsPerThread], c02[kOffsetsPerThread], c13[kOffsetsPerThread];
+  for (long n = 0; !cur.done(); ++n) {
+    const int stage = static_cast<int>(n & 1);
+    if (!nxt.done()) produce(stage ^ 1);
+    windows_swept += cur.new_window<kShared>();
+    const uint8_t* w = win + ((windows_swept - 1) & 1) * win_bytes;
+    mbar_wait(bar + stage, static_cast<uint32_t>(n >> 1) & 1);
+    sweep_step(tab_s, w, s2 + stage * wk.seg_max, min(kSegB, wk.l2p - cur.s * kSegB),
+               mx, c02, c13);
+    write_stats(wk, cur.q, cur.t, cur.s == cur.s_begin, mx, c02, c13);
+    __syncwarp();                  // every lane is done with this stage
+    cur.next(wk);
+  }
+}
+
+// The work list and grid of a launch: the grid and the Seq2 split follow
+// the card's resident warp slots.
+template <bool kShared>
+cudaError_t plan_work(int l2p, int noff_pad, int b, Work* wk, int* blocks,
+                      size_t* smem, int* per_sm) {
+  wk->l2p = l2p;
+  wk->noff_pad = noff_pad;
+  wk->b = b;
+  wk->ntiles = noff_pad / kGranule;
+  wk->nseg = (l2p + kSegB - 1) / kSegB;
+  wk->seg_max = min(l2p, kSegB);
+  *smem = kTableBytes + kWarps * static_cast<size_t>(warp_bytes(wk->seg_max));
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           per_sm, sweep_batched_kernel<kShared>, kThreads, *smem)) != cudaSuccess) {
+    return err;
+  }
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long slots = static_cast<long>(sms) * *per_sm * kWarps;
+  const long tiles = static_cast<long>(b) * wk->ntiles;
+  wk->parts = 1;
+  wk->segs_per_part = wk->nseg;
+  if (tiles < slots && wk->nseg > 1) {
+    const long want = min(static_cast<long>(wk->nseg), (slots + tiles - 1) / tiles);
+    wk->segs_per_part = static_cast<int>((wk->nseg + want - 1) / want);
+    wk->parts = (wk->nseg + wk->segs_per_part - 1) / wk->segs_per_part;
+  }
+  wk->items = tiles * wk->parts;
+  *blocks = static_cast<int>(min(static_cast<long>(sms) * *per_sm,
+                                 (wk->items + kWarps - 1) / kWarps));
+  return cudaSuccess;
 }
 
 template <bool kShared>
 int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
            void* out, int noff_pad, int b, void* stream) {
-  if (b <= 0 || noff_pad <= 0 || noff_pad % kTile != 0 || l2p <= 0 ||
+  if (b <= 0 || noff_pad <= 0 || noff_pad % kGranule != 0 || l2p <= 0 ||
       l2p % kFlush != 0 || l1k != noff_pad + l2p) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if ((reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(c2) |
+       reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  Work wk;
+  int blocks = 0, per_sm = 0;
+  size_t smem = 0;
+  cudaError_t err = plan_work<kShared>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wk.c1 = static_cast<const uint8_t*>(c1);
+  wk.c2 = static_cast<const uint8_t*>(c2);
+  wk.out = static_cast<int32_t*>(out);
+  wk.l1k = l1k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ntiles = noff_pad / kTile;
-  const int nseg = (l2p + kSeg - 1) / kSeg;
-  cudaError_t err;
-  if (nseg > 1) {
-    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * 8 * static_cast<size_t>(noff_pad) * b, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (wk.parts > 1) {
+    // counts start at 0, maxranks at -1 (all bytes 0xff)
+    const size_t row = sizeof(int32_t) * static_cast<size_t>(noff_pad);
+    if ((err = cudaMemsetAsync(out, 0, 5 * row * b, s)) != cudaSuccess ||
+        (err = cudaMemset2DAsync(static_cast<char*>(out) + 4 * row, 5 * row, 0xff,
+                                 row, b, s)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
   }
-  // One wave: as many query groups as the card holds blocks beside the
-  // (tile, segment) grid, and never more than grid.z allows.
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, sweep_batched_kernel<kShared>, kThreads, 0)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  const long slots = static_cast<long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const long groups = slots / (static_cast<long>(ntiles) * nseg);
-  long group = (b + (groups > 0 ? groups : 1) - 1) / (groups > 0 ? groups : 1);
-  group = group > (b + 65534L) / 65535L ? group : (b + 65534L) / 65535L;
-  const dim3 grid(ntiles, nseg, static_cast<unsigned>((b + group - 1) / group));
-  sweep_batched_kernel<kShared><<<grid, kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(c1), l1k, static_cast<const uint8_t*>(c2), l2p,
-      static_cast<const int8_t*>(code), static_cast<int32_t*>(out), noff_pad, b,
-      static_cast<int>(group));
+  sweep_batched_kernel<kShared><<<blocks, kThreads, smem, s>>>(
+      wk, static_cast<const int8_t*>(code));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -120,7 +465,9 @@ int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
 
 extern "C" {
 
-// (B, 8, noff_pad) statistics of B queries, each with its own Seq1 row of
+int psa_sweep_batched_tile() { return kGranule; }
+
+// (B, 5, noff_pad) stats5 of B queries, each with its own Seq1 row of
 // c1 (B, l1k).  Launches on `stream`; returns cudaGetLastError().
 int psa_sweep_batched_launch(const void* c1, int l1k, const void* c2, int l2p,
                              const void* code, void* out, int noff_pad, int b,
@@ -133,6 +480,31 @@ int psa_sweep_batched_shared_launch(const void* c1, int l1k, const void* c2,
                                     int l2p, const void* code, void* out,
                                     int noff_pad, int b, void* stream) {
   return launch<true>(c1, l1k, c2, l2p, code, out, noff_pad, b, stream);
+}
+
+// The plan a launch of these shapes on the current device takes:
+// plan[0..7] = resident blocks per SM, blocks, warp workers, items, the
+// longest chunk of items a worker takes, Seq2 parts, segments per part,
+// dynamic shared bytes per block.
+int psa_sweep_batched_plan(int l2p, int noff_pad, int b, int shared,
+                           long long* plan) {
+  if (b <= 0 || noff_pad <= 0 || noff_pad % kGranule != 0 || l2p <= 0 ||
+      l2p % kFlush != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Work wk;
+  int blocks = 0, per_sm = 0;
+  size_t smem = 0;
+  const cudaError_t err =
+      shared ? plan_work<true>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm)
+             : plan_work<false>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long workers = static_cast<long long>(blocks) * kWarps;
+  const long long v[8] = {per_sm, blocks, workers, wk.items,
+                          (wk.items + workers - 1) / workers, wk.parts,
+                          wk.segs_per_part, static_cast<long long>(smem)};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// The per-block body of every offset sweep kernel (sweep.cu, sweep_batched.cu):
-// the expanded code table, the staging of a Seq1 window and a Seq2 segment in
+// The per-block body of the single-query offset sweep (sweep.cu): the
+// expanded code table, the staging of a Seq1 window and a Seq2 segment in
 // shared memory, the per-pair loop and the write of one tile's statistics.
+// The batched sweeps (sweep_batched.cu) share its constants, the expanded
+// table and its layout, and have a warp-level loop of their own.
 //
 // Contract of a tile (the TPU kernels' layout): for offset o of the tile and
 // the positions i of this block's Seq2 segment, with v = code[c1[o+i]][c2[i]],
@@ -59,15 +61,13 @@ __device__ __forceinline__ void stage_codes(uint8_t* s,
 
 // One tile: kTile offsets from o0 against the `seg` staged Seq2 positions
 // (a multiple of kFlush).  s1 holds the kTile + seg Seq1 codes the tile's
-// windows cover.  `exclusive`: this block is the only one writing these
-// offsets (Seq2 is not split), so it stores all 8 rows; otherwise it adds
-// rows 0-4 into an output zeroed beforehand.
+// windows cover.  Rows 0-4 are added into an output zeroed beforehand,
+// since other blocks may sweep other segments of Seq2 for these offsets.
 __device__ __forceinline__ void sweep_tile(const uint32_t* tab,
                                            const uint8_t* s1,
                                            const uint8_t* s2, int seg,
                                            int32_t* __restrict__ out,
-                                           int noff_pad, int o0,
-                                           bool exclusive) {
+                                           int noff_pad, int o0) {
   const int base = threadIdx.x * kOffsetsPerThread;
   uint32_t w[kOffsetsPerThread];             // w[j] = s1[base + i + j]
   uint32_t mx[kOffsetsPerThread];
@@ -109,19 +109,11 @@ __device__ __forceinline__ void sweep_tile(const uint32_t* tab,
 #pragma unroll
   for (int j = 0; j < kOffsetsPerThread; ++j) {
     const long o = static_cast<long>(o0) + base + j;
-    if (exclusive) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) out[k * static_cast<long>(noff_pad) + o] = cnt[j][k];
-      out[4L * noff_pad + o] = static_cast<int>(mx[j] >> 24);
-#pragma unroll
-      for (int k = 5; k < 8; ++k) out[k * static_cast<long>(noff_pad) + o] = 0;
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (cnt[j][k]) atomicAdd(out + k * static_cast<long>(noff_pad) + o, cnt[j][k]);
-      }
-      if (mx[j]) atomicMax(out + 4L * noff_pad + o, static_cast<int>(mx[j] >> 24));
+    for (int k = 0; k < 4; ++k) {
+      if (cnt[j][k]) atomicAdd(out + k * static_cast<long>(noff_pad) + o, cnt[j][k]);
     }
+    if (mx[j]) atomicMax(out + 4L * noff_pad + o, static_cast<int>(mx[j] >> 24));
   }
 }
 

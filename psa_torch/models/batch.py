@@ -11,10 +11,11 @@ on f32 rounding.
 
 The batch path (`search_batch` -> `batched_search_exact`) buckets queries
 by padded shape and streams each bucket through microbatches: one upload
-per operand, one batched sweep kernel (csrc/sweep_batched.cu; the
-shared-Seq1 kernel when the bucket shares one Seq1), the epilogue and the
-pack on the card, and an asynchronous fetch into pinned memory; the host
-selection of one microbatch overlaps the device work of the next ones.
+per operand, one batched sweep kernel that writes the stats5 the epilogue
+reads (csrc/sweep_batched.cu; the shared-Seq1 kernel when the bucket
+shares one Seq1), the epilogue and the pack on the card, and an
+asynchronous fetch into pinned memory; the host selection of one
+microbatch overlaps the device work of the next ones.
 
 The packed output keeps the JAX package's non-compact layout; its int16
 compaction and 5-bit code upload were made for a bandwidth-bound TPU
@@ -32,20 +33,21 @@ import numpy as np
 import torch
 
 from psa_torch.config import CONFIG
-from psa_torch.core.alphabet import (ALPHABET_ERROR, encode_batch_padded,
-                                     validate_batch)
+from psa_torch.core.alphabet import (ALPHABET_ERROR, PAD_CODE,
+                                     encode_batch_padded, validate_batch)
 from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    build_tables_cached, device_tables,
                                    f32_band_epsilon)
 from psa_torch.models.search import AlignmentSearchEngine, resolve_device
-from psa_torch.ops.common import keyed_f32_totals_ops
+from psa_torch.ops.common import keyed_f32_totals_ops, round_up
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
-from psa_torch.ops.sweep import (offset_stats, plan_shapes,
-                                 stats5_from_sweep, sweep, sweep_batched,
-                                 sweep_batched_shared, upload_codes)
+from psa_torch.ops.sweep import (TILE_O, offset_stats, plan_bucket,
+                                 plan_shapes, stats5_from_sweep, sweep,
+                                 sweep_batched, sweep_batched_shared,
+                                 upload_codes)
 
 __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
            "pack_epilogue_outputs", "unpack_epilogue_outputs",
@@ -159,8 +161,8 @@ def fused_stats5_from_codes(c1b: torch.Tensor, c2b: torch.Tensor,
                             code: torch.Tensor) -> torch.Tensor:
     """(B, 5, noff_pad) int32 stats of B queries in one batched sweep:
     rows 0-3 class counts, row 4 maxrank.  c1b (B, l1k), c2b (B, l2p)
-    uint8."""
-    return stats5_from_sweep(sweep_batched(c1b, c2b, code))
+    uint8; the kernel writes this layout itself."""
+    return sweep_batched(c1b, c2b, code)
 
 
 def fused_stats5_from_codes_shared(c1: torch.Tensor, c2b: torch.Tensor,
@@ -168,7 +170,7 @@ def fused_stats5_from_codes_shared(c1: torch.Tensor, c2b: torch.Tensor,
     """`fused_stats5_from_codes` for B queries sharing the one Seq1 row c1
     (l1k,): bit-identical to it on B broadcast copies, through the kernel
     that stages each Seq1 window once for a group of queries."""
-    return stats5_from_sweep(sweep_batched_shared(c1, c2b, code))
+    return sweep_batched_shared(c1, c2b, code)
 
 
 def microbatch_spans(b_n: int, mb: int) -> list:
@@ -191,18 +193,26 @@ def upload_rows(a: np.ndarray, device: torch.device):
 def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
                     noffd: torch.Tensor, dtabs: DeviceTables, k: int = TOPK,
                     shared_s1: bool = False, fused: bool = True):
-    """Device half of one microbatch: the sweep (one batched launch; the
+    """Device half of one microbatch: the stats5 (one batched launch; the
     shared-Seq1 kernel when c1d is one (l1k,) row; with fused=False one
-    `sweep` launch per query, a cross-check path), the maxrank conversion,
-    the batched top-k epilogue and the pack.  Returns the packed
+    `sweep` launch per query and the maxrank conversion, a cross-check
+    path), the batched top-k epilogue and the pack.  Returns the packed
     (n, 6k+2) int32 buffer on the device."""
     if shared_s1:
         stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
     elif fused:
         stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code)
     else:
+        # `sweep` takes whole TILE_O-offset tiles: each row's Seq1 is padded
+        # out to them and the bucket's columns kept
+        l2p = c2d.shape[1]
+        noff_pad = c1d.shape[1] - l2p
+        c1w = torch.full((c1d.shape[0], round_up(noff_pad, TILE_O) + l2p),
+                         PAD_CODE, dtype=torch.uint8, device=c1d.device)
+        c1w[:, :c1d.shape[1]] = c1d
         stats5 = stats5_from_sweep(torch.stack(
-            [sweep(c1d[r], c2d[r], dtabs.code) for r in range(c2d.shape[0])]))
+            [sweep(c1w[r], c2d[r], dtabs.code)[:, :noff_pad]
+             for r in range(c2d.shape[0])]))
     return pack_epilogue_outputs(*exact_topk_epilogue_rows(
         stats5, dtabs, noffd, c2d.shape[1], k))
 
@@ -327,8 +337,9 @@ def batched_search_exact(c1b, c2b, noffs, n2s, dtabs: DeviceTables,
     single-query path).
 
     c1b (B, l1k) and c2b (B, l2p) hold PAD-padded codes with
-    l1k = noff_pad + l2p from `plan_shapes`; noffs and n2s the real offset
-    counts and Seq2 lengths.  Queries stream through microbatches of
+    l1k = noff_pad + l2p from `plan_bucket` (noff_pad: any multiple of
+    BATCH_TILE_O that covers every row's offsets); noffs and n2s the real
+    offset counts and Seq2 lengths.  Queries stream through microbatches of
     `micro_b` (config `micro_batch`).  Returns a list of SearchResult |
     None (None = no mutation exists).  A query whose f32 near-tie band holds
     more than k offsets is re-swept alone and selected from its full
@@ -435,8 +446,9 @@ def search_batch(queries, backend: str = "torch",
     """Mixed-size multi-query search with bucketed padding.
 
     Queries (utils.io.Query) are grouped by (weights, mode, l1k, l2p), the
-    padded shapes of `plan_shapes`; each bucket runs as one
-    `batched_search_exact` on the card (`device=None`; raises without one)
+    padded shapes of `plan_shapes`; each bucket is encoded at the tighter
+    padding of `plan_bucket` (its longest query in warp tiles) and runs as
+    one `batched_search_exact` on the card (`device=None`; raises without one)
     or on `device`, through the shared-Seq1 kernel when every query of the
     bucket has the same Seq1.  backend="numpy" runs every bucket on the
     host oracle instead.  Results come back in input order; None marks a
@@ -457,16 +469,17 @@ def search_batch(queries, backend: str = "torch",
         key = (tuple(float(w) for w in q.weights), q.is_max, l1k, l2p)
         buckets.setdefault(key, []).append(i)
 
-    for (w, is_max, l1k, l2p), idxs in buckets.items():
+    for (w, is_max, _, l2p), idxs in buckets.items():
         if dev is None:
             _host_engine_bucket(queries, idxs, results, w, is_max,
                                 strict_alphabet)
             continue
         dtabs = device_tables(build_tables_cached(np.asarray(w), is_max), dev)
-        c1b = encode_batch_padded([queries[i].seq1 for i in idxs], l1k)
-        c2b = encode_batch_padded([queries[i].seq2 for i in idxs], l2p)
         noffs = np.array([len(queries[i].seq1) - len(queries[i].seq2) + 1
                           for i in idxs], np.int32)
+        _, l1k = plan_bucket(noffs, l2p)
+        c1b = encode_batch_padded([queries[i].seq1 for i in idxs], l1k)
+        c2b = encode_batch_padded([queries[i].seq2 for i in idxs], l2p)
         n2s = np.array([len(queries[i].seq2) for i in idxs], np.int32)
         # string equality guarantees identical encoded rows
         s1_0 = queries[idxs[0]].seq1

@@ -4,19 +4,22 @@ versions, shape planning, and `offset_stats`.
 For each offset o of Seq2 under Seq1 the sweep reads the fused code
 CODE[s1[o+i], s2[i]] at every position i and returns, per offset, the exact
 counts of the four sign classes and the largest fused code (which encodes
-the best substitution rank).  Output layout, shared with the TPU kernel
-(psa_tpu/ops/pallas_sweep.py::_sweep_kernel): (8, noff_pad) int32, rows 0-3
-the class counts, row 4 the max code (0 = no substitution anywhere), rows
-5-7 zero.
+the best substitution rank).  Output layout of `sweep`, shared with the TPU
+kernel (psa_tpu/ops/pallas_sweep.py::_sweep_kernel): (8, noff_pad) int32,
+rows 0-3 the class counts, row 4 the max code (0 = no substitution
+anywhere), rows 5-7 zero.
 
 `sweep` launches the hand-written Hopper kernel (csrc/sweep.cu) for CUDA
 tensors and runs `sweep_plain` — the blocked gather of the JAX package's
 engine_xla, in torch — for CPU tensors.  `sweep_batched` and
-`sweep_batched_shared` do the same for B queries at once, (B, 8, noff_pad)
-(csrc/sweep_batched.cu; plain versions `sweep_batched_plain` and
-`sweep_batched_shared_plain`).  The kernel lab's tensor-core sweeps
-(csrc/sweep_mma.cu) have their wrappers in ops/_sweep_v2.py and
-ops/_sweep_v3.py and are built into the same library.  A failed build or
+`sweep_batched_shared` do the same for B queries at once and return what
+the batch epilogue reads, stats5 (B, 5, noff_pad): rows 0-3 the class
+counts, row 4 the maxrank (csrc/sweep_batched.cu; plain versions
+`sweep_batched_plain` and `sweep_batched_shared_plain`).  Their offsets pad
+to whole warp tiles of BATCH_TILE_O (`plan_bucket`), not to TILE_O.  The
+kernel lab's tensor-core sweeps (csrc/sweep_mma.cu) have their wrappers in
+ops/_sweep_v2.py and ops/_sweep_v3.py and are built into the same
+library.  A failed build or
 launch raises; nothing falls back to the plain version.
 """
 
@@ -37,6 +40,7 @@ from psa_torch.core.tables import ScoringTables
 from psa_torch.ops.common import round_up
 
 TILE_O = 1024    # offsets per thread block (csrc/sweep_core.cuh kTile)
+BATCH_TILE_O = 256  # offsets per warp tile (csrc/sweep_batched.cu kGranule)
 L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
 MMA_TILE = 256   # offsets per block of the lab's sweeps (csrc/sweep_mma.cu kTile)
 MMA_CHUNK = 64   # Seq2 positions per band (csrc/sweep_mma.cu kChunk)
@@ -66,6 +70,14 @@ def plan_shapes(n1: int, n2: int):
     l2p = round_up(max(n2, 1), L2_ALIGN)
     noff_pad = round_up(noff, TILE_O)
     return noff, noff_pad, l2p, noff_pad + l2p
+
+
+def plan_bucket(noffs, l2p: int):
+    """(noff_pad, l1k) of a bucket for the batched sweeps: the offsets pad
+    to the bucket's longest query in whole warp tiles (BATCH_TILE_O), Seq1
+    to cover every padded offset's full window."""
+    noff_pad = round_up(int(np.max(noffs)), BATCH_TILE_O)
+    return noff_pad, noff_pad + l2p
 
 
 def upload_codes(codes: np.ndarray, length: int, device) -> torch.Tensor:
@@ -142,13 +154,19 @@ def build_library() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.psa_sweep_batched_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_longlong)]
     for fn in (lib.psa_sweep_tile, lib.psa_sweep_align,
-               lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk):
+               lib.psa_sweep_batched_tile, lib.psa_sweep_mma_tile,
+               lib.psa_sweep_mma_chunk, lib.psa_sweep_batched_plan):
         fn.restype = ctypes.c_int
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p
-    if ((lib.psa_sweep_tile(), lib.psa_sweep_align(), lib.psa_sweep_mma_tile(),
-         lib.psa_sweep_mma_chunk()) != (TILE_O, L2_ALIGN, MMA_TILE, MMA_CHUNK)):
+    if ((lib.psa_sweep_tile(), lib.psa_sweep_align(),
+         lib.psa_sweep_batched_tile(), lib.psa_sweep_mma_tile(),
+         lib.psa_sweep_mma_chunk())
+            != (TILE_O, L2_ALIGN, BATCH_TILE_O, MMA_TILE, MMA_CHUNK)):
         raise RuntimeError("csrc tile constants disagree with ops/sweep.py")
     _lib = lib
     return lib
@@ -201,7 +219,33 @@ def _check_batched(c1: torch.Tensor, c2b: torch.Tensor, code: torch.Tensor,
             or tuple(code.shape) != (32, 32)):
         raise ValueError("expected c1 " + ("(l1k,)" if shared else "(B, l1k)")
                          + ", c2b (B, l2p) with B > 0 and code (32, 32)")
-    return c2b.shape[0], _check_lengths(c1.shape[-1], c2b.shape[1])
+    return c2b.shape[0], _check_lengths(c1.shape[-1], c2b.shape[1],
+                                        BATCH_TILE_O)
+
+
+def _check_aligned(**named):
+    """The batched kernels copy rows with 16-byte bulk copies: every
+    operand must start on a 16-byte boundary."""
+    for name, t in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the batched "
+                             f"sweep kernel (data_ptr % 16 = {t.data_ptr() % 16})")
+
+
+def batched_plan(l2p: int, noff_pad: int, b: int, shared: bool) -> dict:
+    """The work list a batched launch of these shapes takes on the current
+    CUDA device (csrc/sweep_batched.cu plan_work): resident blocks per SM,
+    blocks, warp workers, items ((tile, Seq2 part, query) steps), the
+    longest chunk of items one worker takes, Seq2 parts (> 1: split over
+    workers, with atomics), segments per part, shared bytes per block."""
+    lib = build_library()
+    plan = (ctypes.c_longlong * 8)()
+    err = lib.psa_sweep_batched_plan(l2p, noff_pad, b, int(shared), plan)
+    if err != 0:
+        raise RuntimeError("psa_sweep_batched_plan failed: "
+                           + lib.psa_error_string(err).decode())
+    return dict(zip(("blocks_per_sm", "blocks", "workers", "items",
+                     "per_worker", "parts", "segs_per_part", "smem_bytes"), plan))
 
 
 def launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
@@ -242,10 +286,12 @@ def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tenso
 
 def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
                   code: torch.Tensor) -> torch.Tensor:
-    """(B, 8, noff_pad) int32: `sweep` for B queries, each with its own
-    Seq1 row.  c1b (B, noff_pad + l2p) and c2b (B, l2p) uint8, PAD_CODE
-    past each sequence.  CUDA tensors go through the Hopper kernel
-    (replacing _sweep_kernel_batched), CPU tensors through
+    """(B, 5, noff_pad) int32 stats5 of B queries, each with its own Seq1
+    row: rows 0-3 the class counts, row 4 the maxrank.  c1b (B, noff_pad +
+    l2p) and c2b (B, l2p) uint8, PAD_CODE past each sequence; noff_pad a
+    multiple of BATCH_TILE_O.  CUDA tensors go through the Hopper kernel
+    (replacing _sweep_kernel_batched and the maxrank conversion), which
+    needs 16-byte aligned operands; CPU tensors through
     `sweep_batched_plain`."""
     global launches_batched
     b, noff_pad = _check_batched(c1b, c2b, code, shared=False)
@@ -253,27 +299,29 @@ def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
         return sweep_batched_plain(c1b, c2b, code)
     if c1b.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1b.device}")
+    _check_aligned(c1b=c1b, c2b=c2b)
     out = launch("psa_sweep_batched_launch", c1b, c2b, code,
-                 (b, 8, noff_pad), b)
+                 (b, 5, noff_pad), b)
     launches_batched += 1
     return out
 
 
 def sweep_batched_shared(c1: torch.Tensor, c2b: torch.Tensor,
                          code: torch.Tensor) -> torch.Tensor:
-    """(B, 8, noff_pad) int32: `sweep_batched` for B queries that share the
+    """(B, 5, noff_pad) int32: `sweep_batched` for B queries that share the
     one Seq1 row c1 (noff_pad + l2p,); equal to `sweep_batched` on B
     broadcast copies of it.  CUDA tensors go through the Hopper kernel
-    (replacing _sweep_kernel_batched_shared), CPU tensors through
-    `sweep_batched_shared_plain`."""
+    (replacing _sweep_kernel_batched_shared and the maxrank conversion),
+    CPU tensors through `sweep_batched_shared_plain`."""
     global launches_batched_shared
     b, noff_pad = _check_batched(c1, c2b, code, shared=True)
     if c1.device.type == "cpu":
         return sweep_batched_shared_plain(c1, c2b, code)
     if c1.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1.device}")
+    _check_aligned(c1=c1, c2b=c2b)
     out = launch("psa_sweep_batched_shared_launch", c1, c2b, code,
-                 (b, 8, noff_pad), b)
+                 (b, 5, noff_pad), b)
     launches_batched_shared += 1
     return out
 
@@ -315,20 +363,23 @@ def sweep_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
 
 def sweep_batched_plain(c1b: torch.Tensor, c2b: torch.Tensor,
                         code: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of `sweep_batched`: `sweep_plain` row by
-    row."""
+    """The plain PyTorch version of `sweep_batched`: `stats5_from_sweep` of
+    `sweep_plain` row by row."""
     _check_batched(c1b, c2b, code, shared=False)
-    return torch.stack([sweep_plain(c1b[q], c2b[q], code)
-                        for q in range(c2b.shape[0])])
+    return stats5_from_sweep(torch.stack(
+        [sweep_plain(c1b[q], c2b[q], code, tile=BATCH_TILE_O)
+         for q in range(c2b.shape[0])]))
 
 
 def sweep_batched_shared_plain(c1: torch.Tensor, c2b: torch.Tensor,
                                code: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of `sweep_batched_shared`: `sweep_plain`
-    of the one Seq1 row against each Seq2 row."""
+    """The plain PyTorch version of `sweep_batched_shared`:
+    `stats5_from_sweep` of `sweep_plain` of the one Seq1 row against each
+    Seq2 row."""
     _check_batched(c1, c2b, code, shared=True)
-    return torch.stack([sweep_plain(c1, c2b[q], code)
-                        for q in range(c2b.shape[0])])
+    return stats5_from_sweep(torch.stack(
+        [sweep_plain(c1, c2b[q], code, tile=BATCH_TILE_O)
+         for q in range(c2b.shape[0])]))
 
 
 def maxrank_from_maxcode(maxcode):

@@ -70,9 +70,14 @@ def oracle(n1: int, n2: int):
 
 
 # Pairs one thread handles in an iteration of a kernel's main loop:
-# csrc/sweep_core.cuh (kFlush positions x kOffsetsPerThread offsets) and
-# csrc/sweep_mma.cu (kChunk positions of one offset).
-LOOP_PAIRS = {"sweep_kernel": 32 * 8, "sweep_mma_kernel": 64}
+# csrc/sweep_core.cuh and csrc/sweep_batched.cu (kFlush positions x
+# kOffsetsPerThread offsets) and csrc/sweep_mma.cu (kChunk positions of one
+# offset).
+LOOP_PAIRS = {"sweep_kernel": 32 * 8, "sweep_batched_kernel": 32 * 8,
+              "sweep_mma_kernel": 64}
+# Kernels whose main loop sits inside a persistent loop over work items:
+# their main loop is the widest of the loops that hold no other loop.
+INNERMOST = {"sweep_batched_kernel"}
 
 
 def sass_of(library: str) -> str:
@@ -98,7 +103,8 @@ def _kernel_name(mangled: str) -> str:
 
 def sass_loop_mix(sass: str) -> dict:
     """The static instruction mix of each kernel's main loop (its widest
-    backward branch) from `cuobjdump -sass` text: {kernel: {"instructions",
+    backward branch; for INNERMOST kernels the widest that holds no other)
+    from `cuobjdump -sass` text: {kernel: {"instructions",
     "segments" (the loop's instructions between its barriers), "per_pair"
     (where LOOP_PAIRS knows the kernel), "mix" {opcode: count}}}."""
     out = {}
@@ -110,6 +116,11 @@ def sass_loop_mix(sass: str) -> dict:
                 for t in re.findall(r"\bBRA\s+0x([0-9a-f]+)", ins) if int(t, 16) <= a]
         if not back:
             continue
+        name = _kernel_name(m.group(1))
+        if name.split("<")[0] in INNERMOST:
+            back = [(h, t) for h, t in back
+                    if not any(h <= h2 and t2 <= t and (h2, t2) != (h, t)
+                               for h2, t2 in back)]
         head, tail = max(back, key=lambda ht: ht[1] - ht[0])
         loop = [ins.split()[0] for a, ins in body if head <= a <= tail]
         segments = [0]
@@ -118,7 +129,6 @@ def sass_loop_mix(sass: str) -> dict:
                 segments.append(0)
             else:
                 segments[-1] += 1
-        name = _kernel_name(m.group(1))
         pairs = LOOP_PAIRS.get(name.split("<")[0])
         out[name] = {"instructions": len(loop), "segments": segments,
                      "per_pair": len(loop) / pairs if pairs else None,

@@ -115,27 +115,27 @@ def test_north_star_on_card(cuda):
 
 
 def batch_rows(rng, b, n1, n2, other, ragged):
-    """(c1b, c2b) uint8 of b queries padded to the bucket of (n1, n2);
-    ragged rows are shorter by up to a third."""
-    _, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
+    """(c1b, c2b) uint8 of b queries of the bucket of (n1, n2), padded as
+    `search_batch` pads it (`plan_bucket`); ragged rows are shorter by up
+    to a third."""
+    l2p = sw.plan_shapes(n1, n2)[2]
+    lens = []
+    for _ in range(b):
+        m1 = n1 - (int(rng.integers(0, n1 // 3)) if ragged else 0)
+        lens.append((m1, min(m1, n2 - (int(rng.integers(0, n2 // 3)) if ragged else 0))))
+    _, l1k = sw.plan_bucket([m1 - m2 + 1 for m1, m2 in lens], l2p)
     c1b = np.full((b, l1k), PAD_CODE, np.uint8)
     c2b = np.full((b, l2p), PAD_CODE, np.uint8)
-    for q in range(b):
-        m1 = n1 - (rng.integers(0, n1 // 3) if ragged else 0)
-        m2 = min(m1, n2 - (rng.integers(0, n2 // 3) if ragged else 0))
+    for q, (m1, m2) in enumerate(lens):
         c1b[q, :m1] = codes(rng, m1, other)
         c2b[q, :m2] = codes(rng, m2, other)
     return c1b, c2b
 
 
-@pytest.mark.parametrize("b,n1,n2,other,ragged", [(64, 2048, 512, False, False),
-                                                  (37, 3000, 700, True, True)])
-def test_batched_kernels_match_plain(cuda, b, n1, n2, other, ragged):
-    """Both batched kernels, all 8 rows integer-equal to their plain
-    versions; the shared kernel equal to the per-row one on broadcast
-    rows."""
-    rng = np.random.default_rng(b + n1)
-    c1b, c2b = batch_rows(rng, b, n1, n2, other, ragged)
+def check_batched_kernels(cuda, c1b, c2b):
+    """Both batched kernels equal to their plain versions (stats5, all 5
+    rows), the shared kernel equal to the per-row one on broadcast rows,
+    and each launch counted once."""
     code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]),
                                          False).code).to(cuda)
     d1 = torch.from_numpy(c1b).to(cuda)
@@ -146,11 +146,65 @@ def test_batched_kernels_match_plain(cuda, b, n1, n2, other, ragged):
     torch.cuda.synchronize()
     assert (sw.launches_batched, sw.launches_batched_shared) == (
         before[0] + 1, before[1] + 1)
+    assert got.shape == (c2b.shape[0], 5, c1b.shape[1] - c2b.shape[1])
     assert torch.equal(got, sw.sweep_batched_plain(d1, d2, code))
     assert torch.equal(shared, sw.sweep_batched_shared_plain(d1[0].contiguous(),
                                                              d2, code))
-    broadcast = d1[:1].expand(b, -1).contiguous()
+    broadcast = d1[:1].expand(c2b.shape[0], -1).contiguous()
     assert torch.equal(shared, sw.sweep_batched(broadcast, d2, code))
+
+
+@pytest.mark.parametrize("b,n1,n2,other,ragged", [(64, 2048, 512, False, False),
+                                                  (37, 3000, 700, True, True)])
+def test_batched_kernels_match_plain(cuda, b, n1, n2, other, ragged):
+    """Both batched kernels, all 5 rows of stats5 integer-equal to their
+    plain versions; the shared kernel equal to the per-row one on
+    broadcast rows."""
+    rng = np.random.default_rng(b + n1)
+    check_batched_kernels(cuda, *batch_rows(rng, b, n1, n2, other, ragged))
+
+
+def warp_slots(cuda, l2p):
+    """The warp workers a batched launch with Seq2 rows of l2p holds."""
+    return sw.batched_plan(l2p, sw.BATCH_TILE_O, 1, False)["blocks_per_sm"] * 4 * (
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+
+
+@pytest.mark.parametrize("case", ["noff_1", "noff_multiple_of_tile", "b_1",
+                                  "b_not_multiple_of_slots", "seq2_segments",
+                                  "seq2_split"])
+def test_batched_kernels_at_edge_shapes(cuda, case):
+    """The work list's edges: one real offset, offsets filling whole warp
+    tiles, one query, a B that fills no whole wave, Seq2 longer than a
+    segment swept by one worker, and a bucket with fewer items than warp
+    slots, whose Seq2 is split over workers (atomics)."""
+    rng = np.random.default_rng(len(case))
+    b, n1, n2 = {"noff_1": (5, 300, 300), "noff_multiple_of_tile": (7, 967, 200),
+                 "b_1": (1, 3000, 500), "b_not_multiple_of_slots": (1111, 1000, 300),
+                 "seq2_segments": (warp_slots(cuda, 1120) // 4 + 5, 2123, 1100),
+                 "seq2_split": (2, 5000, 4000)}[case]
+    c1b, c2b = batch_rows(rng, b, n1, n2, False, False)
+    plan = sw.batched_plan(c2b.shape[1], c1b.shape[1] - c2b.shape[1], b, False)
+    assert (plan["segs_per_part"] > 1) == (case == "seq2_segments")
+    assert (plan["parts"] > 1) == (case == "seq2_split")
+    check_batched_kernels(cuda, c1b, c2b)
+
+
+def test_batched_kernels_refuse_misaligned_rows(cuda):
+    code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]),
+                                         False).code).to(cuda)
+    flat = torch.full((1 + 2 * (256 + 64),), PAD_CODE, dtype=torch.uint8,
+                      device=cuda)
+    c2 = torch.full((2, 64), PAD_CODE, dtype=torch.uint8, device=cuda)
+    before = (sw.launches_batched, sw.launches_batched_shared)
+    with pytest.raises(ValueError, match="aligned"):
+        sw.sweep_batched(flat[1:].view(2, 256 + 64), c2, code)
+    with pytest.raises(ValueError, match="aligned"):
+        sw.sweep_batched_shared(flat[1: 1 + 256 + 64], c2, code)
+    with pytest.raises(ValueError, match="aligned"):
+        sw.sweep_batched(flat[:-1].view(2, 256 + 64), flat[1: 129].view(2, 64), code)
+    assert (sw.launches_batched, sw.launches_batched_shared) == before
+    assert sw.sweep_batched(flat[:-1].view(2, 256 + 64), c2, code).shape == (2, 5, 256)
 
 
 @pytest.mark.parametrize("shared", [False, True])

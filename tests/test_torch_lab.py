@@ -275,3 +275,28 @@ def test_sass_loop_mix_reads_the_main_loop():
     assert got["per_pair"] == 5 / v2.CHUNK
     assert got["mix"] == {"IMMA.16832.S8.S8": 1, "STS.U8": 1,
                           "BAR.SYNC.DEFER_BLOCKING": 1, "LDS": 1, "BRA": 1}
+
+
+def test_sass_loop_mix_takes_the_batched_pair_loop():
+    """The batched kernel's pair loop sits inside its persistent loop over
+    work items, beside the mbarrier wait loop: the widest loop that holds
+    no other is taken, and its pairs are kFlush x 8."""
+    ns = "_GLOBAL__N__71c8276e_16_sweep_batched_cu_c09359e6"
+    name = f"_ZN{len(ns)}{ns}20sweep_batched_kernelILb0EEEvNS_4WorkEPKa"
+    sass = f"""
+        Function : {name}
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R9+URZ], R2 ;
+        /*0020*/              @!P0 BRA 0x10 ;
+        /*0030*/                   LDS R5, [R3] ;
+        /*0040*/                   IADD3 R6, R6, R5, RZ ;
+        /*0050*/                   VIMNMX.U32 R7, R7, R5, !PT ;
+        /*0060*/               @P1 BRA 0x30 ;
+        /*0070*/                   STG.E.128 [R8], R4 ;
+        /*0080*/               @P2 BRA 0x10 ;
+        /*0090*/                   EXIT ;
+"""
+    got = kernel_lab.sass_loop_mix(sass)["sweep_batched_kernel<false>"]
+    assert got["instructions"] == 4 and got["segments"] == [4]
+    assert got["per_pair"] == 4 / (sw.L2_ALIGN * 8)
+    assert got["mix"] == {"LDS": 1, "IADD3": 1, "VIMNMX.U32": 1, "BRA": 1}

@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Builds the sweep kernels from psa_torch/csrc and holds each against its
-plain PyTorch version on the card.  Drives the port's two paths, each with
-the kernels' launch counts zeroed just before it and read just after:
+plain PyTorch version on the card (`sweep` also at the edges of its even
+split, with the card's split beside `sweep_plan`'s).  Drives the port's
+paths, each with the kernels' launch counts zeroed just before it and read
+just after:
 - the single-query path (the engine and the `psa_torch.utils.cli` CLI) at
   the 100k x 10k north-star size;
 - the exact batch path (`search_batch` and `psa_torch.utils.cli --batch`)
   on 1024 queries of 2048 x 512, per-row and with one shared Seq1, and on
-  8192 per-row queries (8 microbatches in flight);
+  8192 per-row queries (8 microbatches in flight); and `search_batch` on
+  the 109-case file, whose batched launches must be one per microbatch of
+  each bucket of 1024-offset keys;
 - the kernel lab (`psa_torch.utils.kernel_lab`): v1, v2 and v3 in turns
   with `--check` at 131072 x 8192, and its command line once at 100k x 10k.
 Times the kernels (one launch per pair of CUDA events, and
@@ -108,8 +112,9 @@ def sweep_bound(pairs: float, in_bytes: int, out_bytes: int):
 
 
 def single_bound(noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
-    """`sweep_bound` of one query's sweep."""
-    return sweep_bound(float(noff) * n2, l1k + l2p + 32 * 32, 8 * 4 * noff_pad)
+    """`sweep_bound` of one query's sweep: its real pairs, its stats5 (5
+    rows) written once."""
+    return sweep_bound(float(noff) * n2, l1k + l2p + 32 * 32, 5 * 4 * noff_pad)
 
 
 def batched_bound(noffs, n2s, l1_bytes: int, c2b_bytes: int, noff_pad: int):
@@ -242,7 +247,7 @@ def batched_kernel_checks(torch, sw, code, dev):
 
     # one query's worth of warp slots at Seq2 rows of 1120 codes: a bucket
     # of 4-tile queries just past it sweeps two segments per item
-    slots = sw.batched_plan(1120, sw.BATCH_TILE_O, 1, False)["blocks_per_sm"] * 4 * sms
+    slots = sw.batched_plan(1120, sw.TILE_O, 1, False)["blocks_per_sm"] * 4 * sms
     big = None
     for case, b, n1, n2, hp, op, ragged, shared in (
             ("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"], 0.0, 0.0, False, True),
@@ -292,6 +297,73 @@ def batched_kernel_checks(torch, sw, code, dev):
         else:
             raise AssertionError(f"{kernel} took a misaligned Seq1 row")
     return worst, big
+
+
+# `sweep` against its plain version: the five shapes of earlier runs,
+# 1M x 2048, and the even split's edges (ranges of several whole tiles at
+# l2p = 32, fewer units than workers, noff = 1, a whole tile whose last step
+# is ragged, one tile split over ~90 workers); (n1, n2, hyphen_p, other_p,
+# PAD_CODE inside the sequences)
+SWEEP_CASES = [("ragged", 1000, 137, 0.05, 0.0, False),
+               ("bench", 131072, 8192, 0.0, 0.0, False),
+               ("north_star", 100_000, 10_000, 0.0, 0.0, False),
+               ("long_seq1", 400_000, 2048, 0.0, 0.0, False),
+               ("lenient", 50_000, 3000, 0.05, 0.05, False),
+               ("seq1_1M", 1_000_000, 2048, 0.0, 0.0, False),
+               ("ranges_of_whole_tiles", 2_000_000, 20, 0.05, 0.05, True),
+               ("noff_1", 300, 300, 0.05, 0.05, True),
+               ("whole_tiles_ragged_step", 2_000_000, 1500, 0.05, 0.05, True),
+               ("tile_over_90_workers", 40_000, 30_000, 0.05, 0.05, True)]
+
+
+def split_plan(sw, noff_pad: int, l2p: int):
+    """The card's split of a `sweep` launch, checked against `sweep_plan`
+    with the card's workers (units, most units per worker, shared tiles)."""
+    card = sw.sweep_launch_plan(l2p, noff_pad)
+    model = sw.sweep_plan(noff_pad, l2p, card["workers"])
+    keys = ("units", "per_worker", "split_tiles")
+    if any(card[k] != model[k] for k in keys):
+        raise AssertionError(f"the card's split {card} is not sweep_plan's "
+                             f"{ {k: model[k] for k in keys} }")
+    return card
+
+
+def sweep_checks(torch, sw, code, dev):
+    """`sweep` against its plain version on the card at SWEEP_CASES, all 5
+    rows of stats5 (tolerance 0: every statistic is an exact integer), each
+    case with its split; and a misaligned operand refused.  Returns the
+    largest difference or raises."""
+    rng = np.random.default_rng(2024)
+    max_abs = 0
+    for name, n1, n2, hp, op, pad in SWEEP_CASES:
+        c1 = random_codes(rng, n1, hp, op)
+        c2 = random_codes(rng, n2, hp, op)
+        if pad:
+            c1[::41] = 28
+            c2[::43] = 28
+        noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
+        plan = split_plan(sw, noff_pad, l2p)
+        d1 = sw.upload_codes(c1, l1k, dev)
+        d2 = sw.upload_codes(c2, l2p, dev)
+        got = sw.sweep(d1, d2, code)
+        torch.cuda.synchronize()
+        want = sw.sweep_plain(d1, d2, code)
+        diff = int((got.long() - want.long()).abs().max().item())
+        max_abs = max(max_abs, diff)
+        emit({"phase": "kernel_vs_plain", "case": name, "n1": n1, "n2": n2,
+              "noff_pad": noff_pad, "l2p": l2p, "max_abs_diff": diff,
+              "tolerance": 0, "rows": list(got.shape), "plan": plan,
+              "rows4_sum": int(got[:4, :noff].sum().item())})
+        if diff != 0 or tuple(got.shape) != (5, noff_pad):
+            raise AssertionError(f"sweep disagrees with its plain version at {name}")
+    flat = torch.full((1 + 256 + 64,), 28, dtype=torch.uint8, device=dev)
+    try:
+        sw.sweep(flat[1:], flat[1:65].clone(), code)
+    except ValueError as e:
+        emit({"phase": "sweep_misaligned", "raised": str(e)})
+    else:
+        raise AssertionError("sweep took a misaligned Seq1")
+    return max_abs
 
 
 def lab_kernel_checks(torch, sw, v2, v3, code, dev):
@@ -515,34 +587,12 @@ def main() -> int:
     sass = kernel_lab.sass_loop_mix(kernel_lab.sass_of(lib._name))
     emit({"phase": "sass_loop_mix", "kernels": sass})
 
-    # 3. kernel vs plain version, on the card: all 8 rows integer-equal
-    # (tolerance 0: every statistic is an exact integer)
+    # 3. kernels vs their plain versions, on the card
     t_ns = build_tables(np.array(NORTH_STAR["weights"]), False)
     code = torch.from_numpy(t_ns.code).to(dev)
     rng = np.random.default_rng(2024)
-    cases = [("ragged", 1000, 137, 0.05, 0.0), ("bench", 131072, 8192, 0.0, 0.0),
-             ("north_star", 100_000, 10_000, 0.0, 0.0),
-             ("long_seq1", 400_000, 2048, 0.0, 0.0),
-             ("lenient", 50_000, 3000, 0.05, 0.05)]
-    max_abs = 0
-    for name, n1, n2, hp, op in cases:
-        c1 = random_codes(rng, n1, hp, op)
-        c2 = random_codes(rng, n2, hp, op)
-        noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
-        d1 = sw.upload_codes(c1, l1k, dev)
-        d2 = sw.upload_codes(c2, l2p, dev)
-        got = sw.sweep(d1, d2, code)
-        torch.cuda.synchronize()
-        want = sw.sweep_plain(d1, d2, code)
-        diff = int((got.long() - want.long()).abs().max().item())
-        max_abs = max(max_abs, diff)
-        emit({"phase": "kernel_vs_plain", "case": name, "n1": n1, "n2": n2,
-              "noff_pad": noff_pad, "l2p": l2p, "max_abs_diff": diff,
-              "tolerance": 0,
-              "rows4_sum": int(got[:4, :noff].sum().item())})
-        if diff != 0:
-            return fail(f"kernel disagrees with its plain version at {name}")
     try:
+        max_abs = sweep_checks(torch, sw, code, dev)
         batched_abs, (big1, big2) = batched_kernel_checks(torch, sw, code, dev)
         lab_abs = lab_kernel_checks(torch, sw, v2, v3, code, dev)
     except AssertionError as e:
@@ -669,6 +719,30 @@ def main() -> int:
           "stderr_tail": pc.stderr[-400:]})
     if not cli_batch_ok:
         return fail("psa-torch --batch differs from its numpy backend")
+    # the same file through search_batch in this process: one batched launch
+    # per microbatch of each bucket, the buckets keyed on offsets rounded to
+    # 1024 (as before the sweep's tiles shrank to 256)
+    from psa_torch.config import CONFIG
+    from psa_torch.utils.io import read_cases
+
+    file_cases = read_cases(str(cases_txt))
+    buckets = {}
+    for q in file_cases:
+        noff, l2p = len(q.seq1) - len(q.seq2) + 1, -(-max(len(q.seq2), 1) // 32) * 32
+        key = (tuple(float(w) for w in q.weights), q.is_max,
+               -(-noff // 1024) * 1024 + l2p, l2p)
+        buckets[key] = buckets.get(key, 0) + 1
+    want_launches = sum(-(-n // CONFIG.micro_batch) for n in buckets.values())
+    zero_launches(sw, v2, v3)
+    search_batch(file_cases, strict_alphabet=False)
+    file_launches = read_launches(sw, v2, v3)
+    got_launches = file_launches["sweep_batched"] + file_launches["sweep_batched_shared"]
+    emit({"phase": "main_path_launches", "path": "batch_file", "cases": len(file_cases),
+          "buckets": len(buckets), "batched_launches_expected": want_launches,
+          **file_launches})
+    if got_launches != want_launches:
+        return fail(f"search_batch took {got_launches} batched launches on the "
+                    f"{len(file_cases)}-case file, not {want_launches}")
 
     # 4c. the kernel-lab path: its command line once, beside this process's
     # oracle of the lab's query; then v1, v2 and v3 in turns with --check,
@@ -693,7 +767,7 @@ def main() -> int:
     # 5. times on the card
     timings = {}
     for name, n1, n2 in (("bench", 131072, 8192), ("north_star", 100_000, 10_000),
-                         ("long_seq1", 400_000, 2048)):
+                         ("long_seq1", 400_000, 2048), ("seq1_1M", 1_000_000, 2048)):
         c1 = random_codes(rng, n1)
         c2 = random_codes(rng, n2)
         noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
@@ -705,6 +779,7 @@ def main() -> int:
                                    runs=10, warm=1)
         bound_ms, bound_by = single_bound(noff, n2, l1k, l2p, noff_pad)
         pairs = float(noff) * n2
+        padded_pairs = float(noff_pad) * l2p
         timings[name] = dict(ms=k_ms, ms_back_to_back=k_bb, plain_ms=p_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "sweep_time", "case": name, "n1": n1, "n2": n2,
@@ -713,7 +788,9 @@ def main() -> int:
               "pair_evals_per_s": pairs / (k_ms * 1e-3),
               "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
               "bound_ms": bound_ms, "bound_by": bound_by,
-              "dispatch_ms": dispatch_ms(sass, "sweep_kernel", pairs),
+              "padded_pairs": padded_pairs,
+              "dispatch_ms": dispatch_ms(sass, "sweep_kernel", padded_pairs),
+              "plan": split_plan(sw, noff_pad, l2p),
               "runs": 20, "back_to_back": KERNEL_BACK_TO_BACK, "plain_runs": 10})
 
     c1n, c2n = encode(s1), encode(s2)
@@ -727,7 +804,7 @@ def main() -> int:
         d2 = sw.upload_codes(c2n, l2p, dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        stats5 = sw.stats5_from_sweep(sw.sweep(d1, d2, dtabs.code))
+        stats5 = sw.sweep(d1, d2, dtabs.code)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         packed = batch.pack_epilogue_outputs(*batch.exact_topk_epilogue_rows(

@@ -69,24 +69,16 @@
 //     queries with long Seq2) is Seq2 split over workers, whose
 //     partial results meet in atomics on an output the entry point
 //     initialises.
-//   * The pair loop keeps sweep_core.cuh's expanded 32-bit table entry (a
-//     6-bit class field, the max code in the top byte, a drain every kFlush
-//     positions), its transposed table and its 8-offset register window,
-//     and takes positions two at a time so that one IADD3 and one VIMNMX3
-//     (Hopper's 3-input max) serve two pairs; the table is read through
-//     32-bit shared addresses, so each pair costs one address add (see
-//     sweep_step).
+//   * The pair loop is sweep_core.cuh's sweep_step, shared with sweep.cu:
+//     an expanded 32-bit table entry (a 6-bit class field, the max code in
+//     the top byte), a transposed table, an 8-offset register window, and
+//     two positions per IADD3 and per VIMNMX3.
 
 #include "sweep_core.cuh"
 
 using namespace psa;
 
 namespace {
-
-constexpr int kWarps = kThreads / 32;                  // workers per block
-constexpr int kGranule = 32 * kOffsetsPerThread;       // offsets per warp tile
-constexpr int kSegB = 1024;                            // Seq2 positions per step
-constexpr int kTableBytes = 32 * 32 * 4;
 
 // The work list of one launch (see the note at the head of the file).  An
 // item is one (tile, Seq2 part, query); item u is query u % b of (tile,
@@ -108,42 +100,6 @@ struct Work {
 __host__ __device__ constexpr int warp_bytes(int seg_max) {
   // two mbarriers, two Seq1 windows, two Seq2 segments
   return 16 + 2 * (kGranule + seg_max) + 2 * seg_max;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar))
-               : "memory");
-}
-
-// One arrival that also announces `bytes` of copies completing on `bar`.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Waits until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile("{\n\t.reg .pred p;\n\t"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                 "selp.u32 %0, 1, 0, p;\n\t}"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
-// 16-byte aligned, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-               " [%0], [%1], %2, [%3];"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
 }
 
 // A worker's place in its list: the items [begin, end) of one contiguous
@@ -189,95 +145,12 @@ __device__ __forceinline__ void issue(const Work& wk, const Cursor& c,
                                       uint64_t* bar) {
   const int p0 = c.s * kSegB;
   const uint32_t seg = min(kSegB, wk.l2p - p0);
-  // the async copies overwrite bytes this warp read through the generic
-  // proxy in the step before last
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_proxy_async();
   mbar_expect(bar, seg + (win ? kGranule + seg : 0));
   bulk_copy(s2, wk.c2 + static_cast<long>(c.q) * wk.l2p + p0, seg, bar);
   if (win) {
     const uint8_t* row = kShared ? wk.c1 : wk.c1 + static_cast<long>(c.q) * wk.l1k;
     bulk_copy(win, row + static_cast<long>(c.t) * kGranule + p0, kGranule + seg, bar);
-  }
-}
-
-// Byte k of x, zero-extended (one PRMT).
-__device__ __forceinline__ uint32_t byte_of(uint32_t x, int k) {
-  return __byte_perm(x, 0, 0x4440 + k);
-}
-
-// The 32-bit word at shared address `addr`.  The table is written once,
-// before the block's only barrier, so the load may be scheduled freely.
-__device__ __forceinline__ uint32_t lds(uint32_t addr) {
-  uint32_t v;
-  asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-// One step: this lane's kOffsetsPerThread offsets against `seg` staged Seq2
-// positions (a multiple of kFlush, at most kSegB).  `win` holds the
-// kGranule + seg Seq1 codes of the warp's tile, s2 the seg Seq2 codes.  On
-// return mx[j] is the largest table entry of offset j, and c02[j] / c13[j]
-// hold its class counts 0 and 2 / 1 and 3 in 12-bit fields at bits 0 and 12.
-//
-// Per pair: one address add, one shared load, and half of an IADD3 and of a
-// VIMNMX3 (positions are taken two at a time: acc += ea + eb,
-// mx = max(mx, ea, eb)).  The table row's shared address is made once per
-// position and the window holds codes premultiplied by 4, so the address
-// is one add; codes are read four to a word and masked to the table's 32
-// rows a word at a time.
-__device__ __forceinline__ void sweep_step(uint32_t tab_s, const uint8_t* win,
-                                           const uint8_t* s2, int seg,
-                                           uint32_t (&mx)[kOffsetsPerThread],
-                                           uint32_t (&c02)[kOffsetsPerThread],
-                                           uint32_t (&c13)[kOffsetsPerThread]) {
-  constexpr uint32_t kCodes = 0x1f1f1f1fu;
-  const int lane = threadIdx.x & 31;
-  // w1[n]: Seq1 codes lane * 8 + 4n .. + 3 of the window
-  const uint32_t* w1 = reinterpret_cast<const uint32_t*>(win + lane * kOffsetsPerThread);
-  const uint32_t* s2w = reinterpret_cast<const uint32_t*>(s2);
-  uint32_t w[kOffsetsPerThread];      // w[j] = 4 * code at lane * 8 + i + j
-  const uint32_t lo = (w1[0] & kCodes) << 2, hi = (w1[1] & kCodes) << 2;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    w[k] = byte_of(lo, k);
-    w[4 + k] = byte_of(hi, k);
-  }
-#pragma unroll
-  for (int j = 0; j < kOffsetsPerThread; ++j) mx[j] = c02[j] = c13[j] = 0;
-  for (int i0 = 0; i0 < seg; i0 += kFlush) {
-    uint32_t acc[kOffsetsPerThread];
-#pragma unroll
-    for (int j = 0; j < kOffsetsPerThread; ++j) acc[j] = 0;
-#pragma unroll
-    for (int i4 = 0; i4 < kFlush / 4; ++i4) {
-      const uint32_t c2 = s2w[i0 / 4 + i4] & kCodes;
-      // 4 * codes lane * 8 + i + 8 for the 4 positions i of this word
-      const uint32_t c1 = (w1[i0 / 4 + i4 + 2] & kCodes) << 2;
-#pragma unroll
-      for (int k = 0; k < 4; k += 2) {
-        const uint32_t ra = tab_s + (byte_of(c2, k) << 7);      // row of position i
-        const uint32_t rb = tab_s + (byte_of(c2, k + 1) << 7);  // and of i + 1
-        const uint32_t na = byte_of(c1, k);
-#pragma unroll
-        for (int j = 0; j < kOffsetsPerThread; ++j) {
-          const uint32_t ea = lds(ra + w[j]);
-          const uint32_t eb = lds(rb + (j + 1 < kOffsetsPerThread ? w[j + 1] : na));
-          acc[j] += ea + eb;
-          mx[j] = __vimax3_u32(mx[j], ea, eb);
-        }
-#pragma unroll
-        for (int j = 0; j + 2 < kOffsetsPerThread; ++j) w[j] = w[j + 2];
-        w[kOffsetsPerThread - 2] = na;
-        w[kOffsetsPerThread - 1] = byte_of(c1, k + 1);
-      }
-    }
-    // drain the 6-bit fields (each at most kFlush) into 12-bit ones, which
-    // hold the kSegB positions of a step
-#pragma unroll
-    for (int j = 0; j < kOffsetsPerThread; ++j) {
-      c02[j] += acc[j] & 0x3f03fu;
-      c13[j] += (acc[j] >> 6) & 0x3f03fu;
-    }
   }
 }
 
@@ -293,14 +166,7 @@ __device__ __forceinline__ void write_stats(const Work& wk, int q, int t,
   int32_t* o = wk.out + static_cast<long>(q) * 5 * wk.noff_pad + t * kGranule
                + (threadIdx.x & 31) * kOffsetsPerThread;
   int v[5][kOffsetsPerThread];
-#pragma unroll
-  for (int j = 0; j < kOffsetsPerThread; ++j) {
-    v[0][j] = c02[j] & 0xfff;
-    v[1][j] = c13[j] & 0xfff;
-    v[2][j] = c02[j] >> 12;
-    v[3][j] = c13[j] >> 12;
-    v[4][j] = max(((static_cast<int>(mx[j] >> 24) - 1) >> 2) - 1, -1);
-  }
+  step_stats5(mx, c02, c13, v);
   if (wk.parts > 1) {
 #pragma unroll
     for (int j = 0; j < kOffsetsPerThread; ++j) {
@@ -312,24 +178,7 @@ __device__ __forceinline__ void write_stats(const Work& wk, int q, int t,
     }
     return;
   }
-#pragma unroll
-  for (int r = 0; r < 5; ++r) {
-    int4* p = reinterpret_cast<int4*>(o + static_cast<long>(r) * wk.noff_pad);
-    int4 a = make_int4(v[r][0], v[r][1], v[r][2], v[r][3]);
-    int4 b = make_int4(v[r][4], v[r][5], v[r][6], v[r][7]);
-    if (!first) {                      // this lane wrote them a step ago
-      const int4 pa = p[0], pb = p[1];
-      if (r < 4) {
-        a = make_int4(a.x + pa.x, a.y + pa.y, a.z + pa.z, a.w + pa.w);
-        b = make_int4(b.x + pb.x, b.y + pb.y, b.z + pb.z, b.w + pb.w);
-      } else {
-        a = make_int4(max(a.x, pa.x), max(a.y, pa.y), max(a.z, pa.z), max(a.w, pa.w));
-        b = make_int4(max(b.x, pb.x), max(b.y, pb.y), max(b.z, pb.z), max(b.w, pb.w));
-      }
-    }
-    p[0] = a;
-    p[1] = b;
-  }
+  store_stats5(o, wk.noff_pad, first, v);
 }
 
 template <bool kShared>
@@ -464,8 +313,6 @@ int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
 }  // namespace
 
 extern "C" {
-
-int psa_sweep_batched_tile() { return kGranule; }
 
 // (B, 5, noff_pad) stats5 of B queries, each with its own Seq1 row of
 // c1 (B, l1k).  Launches on `stream`; returns cudaGetLastError().

@@ -33,21 +33,20 @@ import numpy as np
 import torch
 
 from psa_torch.config import CONFIG
-from psa_torch.core.alphabet import (ALPHABET_ERROR, PAD_CODE,
-                                     encode_batch_padded, validate_batch)
+from psa_torch.core.alphabet import (ALPHABET_ERROR, encode_batch_padded,
+                                     validate_batch)
 from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    build_tables_cached, device_tables,
                                    f32_band_epsilon)
 from psa_torch.models.search import AlignmentSearchEngine, resolve_device
-from psa_torch.ops.common import keyed_f32_totals_ops, round_up
+from psa_torch.ops.common import keyed_f32_totals_ops
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
-from psa_torch.ops.sweep import (TILE_O, offset_stats, plan_bucket,
-                                 plan_shapes, stats5_from_sweep, sweep,
-                                 sweep_batched, sweep_batched_shared,
-                                 upload_codes)
+from psa_torch.ops.sweep import (bucket_shape, offset_stats, plan_bucket,
+                                 plan_shapes, sweep, sweep_batched,
+                                 sweep_batched_shared, upload_codes)
 
 __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
            "pack_epilogue_outputs", "unpack_epilogue_outputs",
@@ -103,10 +102,10 @@ def unpack_epilogue_outputs(buf: np.ndarray, k: int):
 
 def run_exact(c1d: torch.Tensor, c2d: torch.Tensor, noff: int,
               dtabs: DeviceTables, k: int = TOPK):
-    """Device half of one query: sweep -> maxrank -> top-k epilogue.
+    """Device half of one query: the sweep's stats5 -> top-k epilogue.
     Returns (packed (1, 6k+2) int32, stats5 (5, noff_pad)); both stay on
     the device."""
-    stats5 = stats5_from_sweep(sweep(c1d, c2d, dtabs.code))
+    stats5 = sweep(c1d, c2d, dtabs.code)
     packed = pack_epilogue_outputs(
         *exact_topk_epilogue_rows(stats5[None], dtabs, noff, c2d.shape[0], k))
     return packed, stats5
@@ -195,24 +194,16 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
                     shared_s1: bool = False, fused: bool = True):
     """Device half of one microbatch: the stats5 (one batched launch; the
     shared-Seq1 kernel when c1d is one (l1k,) row; with fused=False one
-    `sweep` launch per query and the maxrank conversion, a cross-check
-    path), the batched top-k epilogue and the pack.  Returns the packed
-    (n, 6k+2) int32 buffer on the device."""
+    `sweep` launch per query, a cross-check path), the batched top-k
+    epilogue and the pack.  Returns the packed (n, 6k+2) int32 buffer on
+    the device."""
     if shared_s1:
         stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
     elif fused:
         stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code)
     else:
-        # `sweep` takes whole TILE_O-offset tiles: each row's Seq1 is padded
-        # out to them and the bucket's columns kept
-        l2p = c2d.shape[1]
-        noff_pad = c1d.shape[1] - l2p
-        c1w = torch.full((c1d.shape[0], round_up(noff_pad, TILE_O) + l2p),
-                         PAD_CODE, dtype=torch.uint8, device=c1d.device)
-        c1w[:, :c1d.shape[1]] = c1d
-        stats5 = stats5_from_sweep(torch.stack(
-            [sweep(c1w[r], c2d[r], dtabs.code)[:, :noff_pad]
-             for r in range(c2d.shape[0])]))
+        stats5 = torch.stack([sweep(c1d[r], c2d[r], dtabs.code)
+                              for r in range(c2d.shape[0])])
     return pack_epilogue_outputs(*exact_topk_epilogue_rows(
         stats5, dtabs, noffd, c2d.shape[1], k))
 
@@ -338,7 +329,7 @@ def batched_search_exact(c1b, c2b, noffs, n2s, dtabs: DeviceTables,
 
     c1b (B, l1k) and c2b (B, l2p) hold PAD-padded codes with
     l1k = noff_pad + l2p from `plan_bucket` (noff_pad: any multiple of
-    BATCH_TILE_O that covers every row's offsets); noffs and n2s the real
+    TILE_O that covers every row's offsets); noffs and n2s the real
     offset counts and Seq2 lengths.  Queries stream through microbatches of
     `micro_b` (config `micro_batch`).  Returns a list of SearchResult |
     None (None = no mutation exists).  A query whose f32 near-tie band holds
@@ -445,8 +436,8 @@ def search_batch(queries, backend: str = "torch",
                  strict_alphabet: bool = True, device=None) -> list:
     """Mixed-size multi-query search with bucketed padding.
 
-    Queries (utils.io.Query) are grouped by (weights, mode, l1k, l2p), the
-    padded shapes of `plan_shapes`; each bucket is encoded at the tighter
+    Queries (utils.io.Query) are grouped by (weights, mode, l1k, l2p) of
+    `bucket_shape`; each bucket is encoded at the tighter
     padding of `plan_bucket` (its longest query in warp tiles) and runs as
     one `batched_search_exact` on the card (`device=None`; raises without one)
     or on `device`, through the shared-Seq1 kernel when every query of the
@@ -465,7 +456,7 @@ def search_batch(queries, backend: str = "torch",
             raise ValueError(f"case {int(np.argmin(ok))}: {ALPHABET_ERROR}")
     buckets: dict = {}
     for i, q in enumerate(queries):
-        _, _, l2p, l1k = plan_shapes(len(q.seq1), len(q.seq2))
+        l1k, l2p = bucket_shape(len(q.seq1), len(q.seq2))
         key = (tuple(float(w) for w in q.weights), q.is_max, l1k, l2p)
         buckets.setdefault(key, []).append(i)
 

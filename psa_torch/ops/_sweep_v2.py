@@ -1,8 +1,9 @@
 """The kernel lab's v2 sweep: `_sweep_kernel_v2`'s counterpart on the int8
 tensor cores.
 
-The function is `ops/sweep.sweep`'s: (8, noff_pad) int32, rows 0-3 the
-sign-class counts, row 4 the max fused code, rows 5-7 zero; class 3 is the
+The function is `ops/sweep.sweep`'s in the TPU kernel's layout: (8,
+noff_pad) int32, rows 0-3 the sign-class counts, row 4 the max fused code,
+rows 5-7 zero; class 3 is the
 nonzero bytes less the rest, so lenient inputs are exact.  The route is the
 TPU lab kernel's: the fused code of every pair comes from a one-hot int8
 contraction (here `mma.sync.m16n8k32.s8`), the band is sheared to offsets and
@@ -11,7 +12,7 @@ decoded 4 pairs to a 32-bit word, and the counts are folded once per chunk
 
 `sweep_v2` launches that kernel for CUDA tensors and runs `sweep_v2_plain`
 for CPU tensors.  Since v2 computes v1's function, the plain version is
-`ops/sweep.sweep_plain` at v2's padding.
+`ops/sweep.sweep_rows_plain` at v2's padding.
 """
 
 from __future__ import annotations
@@ -75,13 +76,13 @@ def sweep_v2(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Te
 def sweep_v2_plain(c1: torch.Tensor, c2: torch.Tensor,
                    code: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of `sweep_v2`: v2 computes `sweep`'s
-    function, so this is `ops/sweep.sweep_plain` at v2's padding."""
-    return sw.sweep_plain(c1, c2, code, tile=TILE, align=CHUNK)
+    function, so this is `ops/sweep.sweep_rows_plain` at v2's padding."""
+    return sw.sweep_rows_plain(c1, c2, code, tile=TILE, align=CHUNK)
 
 
 def offset_stats_v2(codes1: np.ndarray, codes2: np.ndarray,
                     tables: ScoringTables, device):
     """Per-offset (counts (noff, 4) int32, maxrank (noff,) int32) on the
     host, computed by `sweep_v2` on `device`."""
-    return sw.stats_via(sweep_v2, plan_shapes_v2, codes1, codes2, tables,
-                        device)
+    return sw.stats_via(lambda *a: sw.stats5_from_sweep(sweep_v2(*a)),
+                        plan_shapes_v2, codes1, codes2, tables, device)

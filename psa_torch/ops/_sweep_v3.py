@@ -64,10 +64,10 @@ def sweep_v3(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Te
 
 def sweep_v3_plain(c1: torch.Tensor, c2: torch.Tensor,
                    code: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of `sweep_v3`: `ops/sweep.sweep_plain` at
-    v3's padding with row 3 zeroed."""
+    """The plain PyTorch version of `sweep_v3`: `ops/sweep.sweep_rows_plain`
+    at v3's padding with row 3 zeroed."""
     check_v3(c1, c2, code)
-    out = sw.sweep_plain(c1, c2, code, tile=TILE, align=CHUNK)
+    out = sw.sweep_rows_plain(c1, c2, code, tile=TILE, align=CHUNK)
     out[3] = 0
     return out
 
@@ -78,7 +78,8 @@ def offset_stats_v3(codes1: np.ndarray, codes2: np.ndarray,
     int32) on the host, computed by `sweep_v3` on `device`; class 3 is
     n2 - c0 - c1 - c2 with the real n2."""
     n2 = int(np.asarray(codes2).shape[0])
-    counts, maxrank = sw.stats_via(sweep_v3, plan_shapes_v3, codes1, codes2,
-                                   tables, device)
+    counts, maxrank = sw.stats_via(lambda *a: sw.stats5_from_sweep(sweep_v3(*a)),
+                                   plan_shapes_v3, codes1, codes2, tables,
+                                   device)
     counts[:, 3] = n2 - counts[:, 0] - counts[:, 1] - counts[:, 2]
     return counts, maxrank

@@ -4,23 +4,26 @@ versions, shape planning, and `offset_stats`.
 For each offset o of Seq2 under Seq1 the sweep reads the fused code
 CODE[s1[o+i], s2[i]] at every position i and returns, per offset, the exact
 counts of the four sign classes and the largest fused code (which encodes
-the best substitution rank).  Output layout of `sweep`, shared with the TPU
-kernel (psa_tpu/ops/pallas_sweep.py::_sweep_kernel): (8, noff_pad) int32,
+the best substitution rank).  The TPU kernel
+(psa_tpu/ops/pallas_sweep.py::_sweep_kernel) writes (8, noff_pad) int32,
 rows 0-3 the class counts, row 4 the max code (0 = no substitution
-anywhere), rows 5-7 zero.
+anywhere), rows 5-7 zero (`sweep_rows_plain`, the layout the kernel lab's
+sweeps keep); `maxrank_from_maxcode` follows it.  `sweep` returns what the
+epilogue reads, stats5 (5, noff_pad) int32: rows 0-3 the class counts, row
+4 the maxrank.
 
-`sweep` launches the hand-written Hopper kernel (csrc/sweep.cu) for CUDA
-tensors and runs `sweep_plain` — the blocked gather of the JAX package's
-engine_xla, in torch — for CPU tensors.  `sweep_batched` and
-`sweep_batched_shared` do the same for B queries at once and return what
-the batch epilogue reads, stats5 (B, 5, noff_pad): rows 0-3 the class
-counts, row 4 the maxrank (csrc/sweep_batched.cu; plain versions
-`sweep_batched_plain` and `sweep_batched_shared_plain`).  Their offsets pad
-to whole warp tiles of BATCH_TILE_O (`plan_bucket`), not to TILE_O.  The
-kernel lab's tensor-core sweeps (csrc/sweep_mma.cu) have their wrappers in
-ops/_sweep_v2.py and ops/_sweep_v3.py and are built into the same
-library.  A failed build or
-launch raises; nothing falls back to the plain version.
+`sweep` launches the hand-written Hopper kernel (csrc/sweep.cu: an even
+split of the (tile, 32-position) units over persistent warp workers, see
+`sweep_plan`) for CUDA tensors and runs `sweep_plain` — the blocked gather
+of the JAX package's engine_xla, in torch — for CPU tensors.
+`sweep_batched` and `sweep_batched_shared` do the same for B queries at once
+and return stats5 (B, 5, noff_pad) (csrc/sweep_batched.cu; plain versions
+`sweep_batched_plain` and `sweep_batched_shared_plain`).  Both kernels'
+offsets pad to whole warp tiles of TILE_O (`plan_shapes`, `plan_bucket`).
+The kernel lab's tensor-core sweeps (csrc/sweep_mma.cu) have their wrappers
+in ops/_sweep_v2.py and ops/_sweep_v3.py and are built into the same
+library.  A failed build or launch raises; nothing falls back to the plain
+version.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ from psa_torch.core.alphabet import PAD_CODE
 from psa_torch.core.tables import ScoringTables
 from psa_torch.ops.common import round_up
 
-TILE_O = 1024    # offsets per thread block (csrc/sweep_core.cuh kTile)
-BATCH_TILE_O = 256  # offsets per warp tile (csrc/sweep_batched.cu kGranule)
+TILE_O = 256     # offsets per warp tile (csrc/sweep_core.cuh kGranule)
 L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
+SEG = 1024       # Seq2 positions per step of a worker (csrc/sweep_core.cuh kSegB)
+BUCKET_O = 1024  # offset granularity of search_batch's bucket keys
 MMA_TILE = 256   # offsets per block of the lab's sweeps (csrc/sweep_mma.cu kTile)
 MMA_CHUNK = 64   # Seq2 positions per band (csrc/sweep_mma.cu kChunk)
 
@@ -62,8 +66,8 @@ _lib = None
 
 def plan_shapes(n1: int, n2: int):
     """(noff, noff_pad, l2p, l1k) for a (n1, n2) query: Seq2 pads to the
-    kernel's flush granularity, the offsets to whole thread-block tiles, and
-    Seq1 to cover every padded offset's full window."""
+    kernel's flush granularity, the offsets to whole warp tiles, and Seq1
+    to cover every padded offset's full window."""
     noff = n1 - n2 + 1
     if noff <= 0:
         raise ValueError("seq2 longer than seq1")
@@ -72,11 +76,20 @@ def plan_shapes(n1: int, n2: int):
     return noff, noff_pad, l2p, noff_pad + l2p
 
 
+def bucket_shape(n1: int, n2: int):
+    """(l1k, l2p) that keys a (n1, n2) query's bucket in `search_batch`:
+    the offsets rounded up to whole BUCKET_O, coarser than the tiles, so
+    that queries of nearby lengths share a bucket and a launch; each bucket
+    is encoded at `plan_bucket`'s tighter padding."""
+    noff, _, l2p, _ = plan_shapes(n1, n2)
+    return round_up(noff, BUCKET_O) + l2p, l2p
+
+
 def plan_bucket(noffs, l2p: int):
     """(noff_pad, l1k) of a bucket for the batched sweeps: the offsets pad
-    to the bucket's longest query in whole warp tiles (BATCH_TILE_O), Seq1
-    to cover every padded offset's full window."""
-    noff_pad = round_up(int(np.max(noffs)), BATCH_TILE_O)
+    to the bucket's longest query in whole warp tiles (TILE_O), Seq1 to
+    cover every padded offset's full window."""
+    noff_pad = round_up(int(np.max(noffs)), TILE_O)
     return noff_pad, noff_pad + l2p
 
 
@@ -157,16 +170,17 @@ def build_library() -> ctypes.CDLL:
     lib.psa_sweep_batched_plan.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_longlong)]
-    for fn in (lib.psa_sweep_tile, lib.psa_sweep_align,
-               lib.psa_sweep_batched_tile, lib.psa_sweep_mma_tile,
-               lib.psa_sweep_mma_chunk, lib.psa_sweep_batched_plan):
+    lib.psa_sweep_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_longlong)]
+    for fn in (lib.psa_sweep_tile, lib.psa_sweep_align, lib.psa_sweep_seg,
+               lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk,
+               lib.psa_sweep_batched_plan, lib.psa_sweep_plan):
         fn.restype = ctypes.c_int
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p
-    if ((lib.psa_sweep_tile(), lib.psa_sweep_align(),
-         lib.psa_sweep_batched_tile(), lib.psa_sweep_mma_tile(),
-         lib.psa_sweep_mma_chunk())
-            != (TILE_O, L2_ALIGN, BATCH_TILE_O, MMA_TILE, MMA_CHUNK)):
+    if ((lib.psa_sweep_tile(), lib.psa_sweep_align(), lib.psa_sweep_seg(),
+         lib.psa_sweep_mma_tile(), lib.psa_sweep_mma_chunk())
+            != (TILE_O, L2_ALIGN, SEG, MMA_TILE, MMA_CHUNK)):
         raise RuntimeError("csrc tile constants disagree with ops/sweep.py")
     _lib = lib
     return lib
@@ -219,17 +233,63 @@ def _check_batched(c1: torch.Tensor, c2b: torch.Tensor, code: torch.Tensor,
             or tuple(code.shape) != (32, 32)):
         raise ValueError("expected c1 " + ("(l1k,)" if shared else "(B, l1k)")
                          + ", c2b (B, l2p) with B > 0 and code (32, 32)")
-    return c2b.shape[0], _check_lengths(c1.shape[-1], c2b.shape[1],
-                                        BATCH_TILE_O)
+    return c2b.shape[0], _check_lengths(c1.shape[-1], c2b.shape[1])
 
 
 def _check_aligned(**named):
-    """The batched kernels copy rows with 16-byte bulk copies: every
-    operand must start on a 16-byte boundary."""
+    """The sweep kernels copy codes with 16-byte bulk copies: every operand
+    must start on a 16-byte boundary."""
     for name, t in named.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the batched "
-                             f"sweep kernel (data_ptr % 16 = {t.data_ptr() % 16})")
+            raise ValueError(f"{name} must be 16-byte aligned for the sweep "
+                             f"kernels (data_ptr % 16 = {t.data_ptr() % 16})")
+
+
+def sweep_plan(noff_pad: int, l2p: int, workers: int) -> dict:
+    """The even split of one `sweep` over `workers` warp workers, as
+    csrc/sweep.cu takes it.  The work is U = noff_pad / TILE_O * l2p /
+    L2_ALIGN units of (warp tile, L2_ALIGN positions of Seq2), tile-major;
+    worker w takes the units [w U // W, (w + 1) U // W) and walks them in
+    steps of at most SEG positions within one tile.  Returns units,
+    per_worker (the most units one worker takes), split_tiles (tiles shared
+    between workers, whose rows they add atomically) and steps: per worker,
+    its steps as (tile, first position, positions, atomic, first step of
+    the worker in the tile)."""
+    upt = l2p // L2_ALIGN
+    units = noff_pad // TILE_O * upt
+    steps, split, most = [], set(), 0
+    for w in range(workers):
+        begin, end = w * units // workers, (w + 1) * units // workers
+        most = max(most, end - begin)
+        mine, u = [], begin
+        while u < end:
+            t0 = u - u % upt
+            stop = min(end, t0 + upt, u + SEG // L2_ALIGN)
+            atomic = not (begin <= t0 and t0 + upt <= end)
+            mine.append((u // upt, (u - t0) * L2_ALIGN, (stop - u) * L2_ALIGN,
+                         atomic, u in (begin, t0)))
+            if atomic:
+                split.add(u // upt)
+            u = stop
+        steps.append(mine)
+    return {"units": units, "per_worker": most, "split_tiles": len(split),
+            "steps": steps}
+
+
+def sweep_launch_plan(l2p: int, noff_pad: int) -> dict:
+    """The split a `sweep` launch of these shapes takes on the current CUDA
+    device (csrc/sweep.cu psa_sweep_plan): resident blocks per SM, warp
+    workers, units, the most units one worker takes, tiles shared between
+    workers, shared bytes per block.  `sweep_plan` with its workers gives
+    the same units, per_worker and split_tiles."""
+    lib = build_library()
+    plan = (ctypes.c_longlong * 6)()
+    err = lib.psa_sweep_plan(l2p, noff_pad, plan)
+    if err != 0:
+        raise RuntimeError("psa_sweep_plan failed: "
+                           + lib.psa_error_string(err).decode())
+    return dict(zip(("blocks_per_sm", "workers", "units", "per_worker",
+                     "split_tiles", "smem_bytes"), plan))
 
 
 def batched_plan(l2p: int, noff_pad: int, b: int, shared: bool) -> dict:
@@ -268,18 +328,22 @@ def launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
 
 
 def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
-    """(8, noff_pad) int32 sweep statistics (see the module docstring).
+    """(5, noff_pad) int32 stats5 of one query: rows 0-3 the class counts,
+    row 4 the maxrank.
 
     c1: (noff_pad + l2p,) uint8 codes; c2: (l2p,) uint8 codes; code: (32, 32)
-    int8 fused table.  Codes must be < 32.  CUDA tensors go through the
-    Hopper kernel, CPU tensors through `sweep_plain`."""
+    int8 fused table; noff_pad a multiple of TILE_O.  CUDA tensors go
+    through the Hopper kernel (replacing _sweep_kernel and the maxrank
+    conversion), which needs 16-byte aligned operands; CPU tensors through
+    `sweep_plain`."""
     global launches
     noff_pad, _ = check_single(c1, c2, code)
     if c1.device.type == "cpu":
         return sweep_plain(c1, c2, code)
     if c1.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1.device}")
-    out = launch("psa_sweep_launch", c1, c2, code, (8, noff_pad))
+    _check_aligned(c1=c1, c2=c2)
+    out = launch("psa_sweep_launch", c1, c2, code, (5, noff_pad))
     launches += 1
     return out
 
@@ -289,7 +353,7 @@ def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
     """(B, 5, noff_pad) int32 stats5 of B queries, each with its own Seq1
     row: rows 0-3 the class counts, row 4 the maxrank.  c1b (B, noff_pad +
     l2p) and c2b (B, l2p) uint8, PAD_CODE past each sequence; noff_pad a
-    multiple of BATCH_TILE_O.  CUDA tensors go through the Hopper kernel
+    multiple of TILE_O.  CUDA tensors go through the Hopper kernel
     (replacing _sweep_kernel_batched and the maxrank conversion), which
     needs 16-byte aligned operands; CPU tensors through
     `sweep_batched_plain`."""
@@ -337,13 +401,13 @@ def _stats_from_codevals(codeval: torch.Tensor):
     return counts, codeval.amax(-1).to(torch.int32)
 
 
-def sweep_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
-                max_elems: int = 1 << 22, tile: int = TILE_O,
-                align: int = L2_ALIGN) -> torch.Tensor:
-    """The plain PyTorch version of `sweep`, on any device: gather each
-    block of offsets' Seq1 windows, look the pairs up in the table, decode.
-    `max_elems` bounds one block's (offsets x l2p) gather; `tile` and
-    `align` are the padding of the kernel it stands for."""
+def sweep_rows_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
+                     max_elems: int = 1 << 22, tile: int = TILE_O,
+                     align: int = L2_ALIGN) -> torch.Tensor:
+    """The TPU kernel's (8, noff_pad) rows in plain PyTorch, on any device:
+    gather each block of offsets' Seq1 windows, look the pairs up in the
+    table, decode.  `max_elems` bounds one block's (offsets x l2p) gather;
+    `tile` and `align` are the padding of the kernel it stands for."""
     noff_pad, l2p = check_single(c1, c2, code, tile, align)
     dev = c1.device
     code_flat = code.reshape(-1).to(torch.int32)
@@ -361,25 +425,30 @@ def sweep_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
     return out
 
 
+def sweep_plain(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
+                max_elems: int = 1 << 22) -> torch.Tensor:
+    """The plain PyTorch version of `sweep`, on any device:
+    `stats5_from_sweep` of `sweep_rows_plain`."""
+    return stats5_from_sweep(sweep_rows_plain(c1, c2, code, max_elems))
+
+
 def sweep_batched_plain(c1b: torch.Tensor, c2b: torch.Tensor,
                         code: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of `sweep_batched`: `stats5_from_sweep` of
-    `sweep_plain` row by row."""
+    `sweep_rows_plain` row by row."""
     _check_batched(c1b, c2b, code, shared=False)
     return stats5_from_sweep(torch.stack(
-        [sweep_plain(c1b[q], c2b[q], code, tile=BATCH_TILE_O)
-         for q in range(c2b.shape[0])]))
+        [sweep_rows_plain(c1b[q], c2b[q], code) for q in range(c2b.shape[0])]))
 
 
 def sweep_batched_shared_plain(c1: torch.Tensor, c2b: torch.Tensor,
                                code: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of `sweep_batched_shared`:
-    `stats5_from_sweep` of `sweep_plain` of the one Seq1 row against each
-    Seq2 row."""
+    `stats5_from_sweep` of `sweep_rows_plain` of the one Seq1 row against
+    each Seq2 row."""
     _check_batched(c1, c2b, code, shared=True)
     return stats5_from_sweep(torch.stack(
-        [sweep_plain(c1, c2b[q], code, tile=BATCH_TILE_O)
-         for q in range(c2b.shape[0])]))
+        [sweep_rows_plain(c1, c2b[q], code) for q in range(c2b.shape[0])]))
 
 
 def maxrank_from_maxcode(maxcode):
@@ -398,16 +467,16 @@ def stats5_from_sweep(out: torch.Tensor) -> torch.Tensor:
 
 def stats_via(sweep_fn, plan, codes1: np.ndarray, codes2: np.ndarray,
               tables: ScoringTables, device):
-    """(counts (noff, 4) int32, maxrank (noff,) int32) on the host from
-    `sweep_fn` run on `device` over the codes padded as `plan(n1, n2)`
-    says."""
+    """(counts (noff, 4) int32, maxrank (noff,) int32) on the host from the
+    stats5 that `sweep_fn` returns on `device` for the codes padded as
+    `plan(n1, n2)` says."""
     codes1 = np.asarray(codes1)
     codes2 = np.asarray(codes2)
     noff, _, l2p, l1k = plan(codes1.shape[0], codes2.shape[0])
     code = torch.from_numpy(np.ascontiguousarray(tables.code)).to(device)
     out = sweep_fn(upload_codes(codes1, l1k, device),
                    upload_codes(codes2, l2p, device), code)
-    st = stats5_from_sweep(out)[:, :noff].cpu().numpy()
+    st = out[:, :noff].cpu().numpy()
     return st[:4].T.copy(), st[4].copy()
 
 

@@ -70,14 +70,14 @@ def oracle(n1: int, n2: int):
 
 
 # Pairs one thread handles in an iteration of a kernel's main loop:
-# csrc/sweep_core.cuh and csrc/sweep_batched.cu (kFlush positions x
-# kOffsetsPerThread offsets) and csrc/sweep_mma.cu (kChunk positions of one
-# offset).
+# csrc/sweep_core.cuh's sweep_step, in sweep.cu and sweep_batched.cu (kFlush
+# positions x kOffsetsPerThread offsets), and csrc/sweep_mma.cu (kChunk
+# positions of one offset).
 LOOP_PAIRS = {"sweep_kernel": 32 * 8, "sweep_batched_kernel": 32 * 8,
               "sweep_mma_kernel": 64}
 # Kernels whose main loop sits inside a persistent loop over work items:
 # their main loop is the widest of the loops that hold no other loop.
-INNERMOST = {"sweep_batched_kernel"}
+INNERMOST = {"sweep_kernel", "sweep_batched_kernel"}
 
 
 def sass_of(library: str) -> str:

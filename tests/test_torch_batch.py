@@ -59,7 +59,7 @@ def port_shapes(c1s, c2s):
     offsets padded to the longest row in whole warp tiles."""
     l2p = sw.round_up(max(len(c) for c in c2s), sw.L2_ALIGN)
     noff = max(len(a) - len(b) + 1 for a, b in zip(c1s, c2s))
-    noff_pad = sw.round_up(noff, sw.BATCH_TILE_O)
+    noff_pad = sw.round_up(noff, sw.TILE_O)
     assert (noff_pad, noff_pad + l2p) == sw.plan_bucket(
         [len(a) - len(b) + 1 for a, b in zip(c1s, c2s)], l2p)
     return noff_pad, l2p, noff_pad + l2p
@@ -161,7 +161,7 @@ def test_sweep_batched_shared_multi_tile_matches_pallas(tile):
     c2s = [random_codes(rng, n2, 0.05) for _ in range(b)]
     t = build_tables(W, False)
     noff_pad, l2p, l1k = port_shapes([c1], c2s)
-    assert noff_pad // sw.BATCH_TILE_O >= 2
+    assert noff_pad // sw.TILE_O >= 2
     got = sw.sweep_batched_shared(torch.from_numpy(pad_rows([c1], l1k)[0]),
                                   torch.from_numpy(pad_rows(c2s, l2p)),
                                   code_tensor(t)).numpy()

@@ -5,7 +5,7 @@ interpret mode, over the real offsets, with tolerance 0 (exact integers);
 the padding of `plan_bucket` at, below and above multiples of the warp tile
 and of 1024; the `fused=False` cross-check at that padding; and
 `search_batch` / `--batch` on a mixed file whose buckets are those of
-`plan_shapes`."""
+`bucket_shape`."""
 
 import numpy as np
 import pytest
@@ -29,7 +29,7 @@ from psa_torch.utils.io import Query
 from conftest import random_codes, random_seq
 
 W = np.array([1.0, 3.0, 4.0, 2.0])
-G = sw.BATCH_TILE_O
+G = sw.TILE_O
 
 
 def pad_rows(rows, length):
@@ -116,8 +116,8 @@ def test_plan_bucket_pads_to_whole_warp_tiles(noff):
     noff_pad, l1k = sw.plan_bucket([noff, max(1, noff // 2)], 96)
     assert noff_pad % G == 0 and noff_pad - G < noff <= noff_pad
     assert l1k == noff_pad + 96
-    # the buckets stay those of plan_shapes; only the padding tightens
-    assert noff_pad <= sw.plan_shapes(noff + 95, 96)[1]
+    # the buckets stay those of bucket_shape; only the padding tightens
+    assert l1k <= sw.bucket_shape(noff + 95, 96)[0]
 
 
 @pytest.mark.parametrize("shared", [False, True])
@@ -163,16 +163,16 @@ def astuple(r):
 
 @pytest.mark.parametrize("is_max", [False, True])
 def test_unfused_cross_check_at_tight_padding(is_max):
-    """`fused=False` sweeps each row with the single-query kernel, which
-    takes whole 1024-offset tiles: at a bucket padding that is not one it
-    gives the fused path's winners and psa_tpu's."""
+    """`fused=False` sweeps each row with the single-query kernel at the
+    bucket's own padding, which is not a whole BUCKET_O: it gives the fused
+    path's winners and psa_tpu's."""
     rng = np.random.default_rng(8 + is_max)
     c1s = [random_codes(rng, n) for n in (1400, 1380, 1100)]
     c2s = [random_codes(rng, n) for n in (100, 64, 90)]
     l2p = sw.round_up(100, sw.L2_ALIGN)
     noffs = noffs_of(c1s, c2s)
     noff_pad, l1k = sw.plan_bucket(noffs, l2p)
-    assert noff_pad == 1536 and noff_pad % sw.TILE_O
+    assert noff_pad == 1536 and noff_pad % sw.BUCKET_O
     n2s = np.array([len(c) for c in c2s], np.int32)
     dt = device_tables(build_tables(W, is_max), "cpu")
     args = (pad_rows(c1s, l1k), pad_rows(c2s, l2p), noffs, n2s, dt)
@@ -199,12 +199,14 @@ def mixed_queries():
 
 def test_search_batch_keeps_the_buckets_of_plan_shapes(monkeypatch):
     """One batched launch per bucket of (weights, mode, l1k, l2p) from
-    `plan_shapes`, each encoded at its own tight padding; the winners are
+    `bucket_shape` (the 1024-offset keys `plan_shapes` gave before its tiles
+    shrank), each encoded at its own tight padding; the winners are
     psa_tpu's."""
     qs = mixed_queries()
     buckets = {}
     for q in qs:
-        _, _, l2p, l1k = sw.plan_shapes(len(q.seq1), len(q.seq2))
+        l1k, l2p = sw.bucket_shape(len(q.seq1), len(q.seq2))
+        assert l1k - l2p == sw.round_up(len(q.seq1) - len(q.seq2) + 1, 1024)
         buckets.setdefault((q.is_max, l1k, l2p), []).append(q)
     want_pads = sorted(sw.plan_bucket([len(q.seq1) - len(q.seq2) + 1 for q in v],
                                       key[2])[0] for key, v in buckets.items())
@@ -216,7 +218,7 @@ def test_search_batch_keeps_the_buckets_of_plan_shapes(monkeypatch):
         c1.shape[-1] - c2.shape[1]) or real_shared(c1, c2, code))
     got = batch.search_batch(qs, device="cpu")
     assert sorted(seen) == want_pads and len(seen) == len(buckets) == 5
-    assert any(p % sw.TILE_O for p in seen)
+    assert any(p % sw.BUCKET_O for p in seen)
     want = jbatch.search_batch([JaxQuery(q.weights, q.seq1, q.seq2, q.is_max)
                                 for q in qs], backend="numpy")
     assert [astuple(r) for r in got] == [astuple(r) for r in want]

@@ -42,7 +42,8 @@ def codes(rng, n, other):
 @pytest.mark.parametrize("n1,n2,other", [(1000, 137, False), (131072, 8192, False),
                                          (400_000, 2048, False), (50_000, 3000, True)])
 def test_kernel_matches_plain(cuda, n1, n2, other):
-    """All 8 rows integer-equal to the plain version on the card."""
+    """All 5 rows of stats5 integer-equal to the plain version on the
+    card."""
     rng = np.random.default_rng(n1 + n2)
     tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
     noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
@@ -53,7 +54,58 @@ def test_kernel_matches_plain(cuda, n1, n2, other):
     got = sw.sweep(d1, d2, code)
     torch.cuda.synchronize()
     assert sw.launches == before + 1
+    assert got.shape == (5, noff_pad)
     assert torch.equal(got, sw.sweep_plain(d1, d2, code))
+
+
+# (n1, n2) at the even split's edges on the card's own worker count
+SPLIT_EDGES = {"ranges_of_whole_tiles": (2_000_000, 20),
+               "few_units": (1000, 137), "noff_1": (300, 300),
+               "whole_tiles_ragged_step": (2_000_000, 1500),
+               "tile_over_90_workers": (40_000, 30_000),
+               "seq1_1M": (1_000_000, 2048)}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_EDGES))
+def test_sweep_at_split_edges(cuda, case):
+    """The kernel equals its plain version where ranges hold several whole
+    tiles, where units are fewer than workers, at noff = 1, with a ragged
+    last step of a whole tile, with one tile split over ~90 workers and at
+    1M x 2048; codes include hyphens, OTHER_CODE and PAD_CODE.  The card's
+    plan agrees with `sweep_plan`."""
+    n1, n2 = SPLIT_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    c1 = rng.integers(0, PAD_CODE + 1, n1).astype(np.int32)
+    c2 = rng.integers(0, PAD_CODE + 1, n2).astype(np.int32)
+    c1[::29] = OTHER_CODE
+    noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
+    card = sw.sweep_launch_plan(l2p, noff_pad)
+    model = sw.sweep_plan(noff_pad, l2p, card["workers"])
+    assert {k: card[k] for k in ("units", "per_worker", "split_tiles")} == {
+        k: model[k] for k in ("units", "per_worker", "split_tiles")}
+    if case in ("few_units", "noff_1"):
+        assert card["units"] <= card["workers"] < card["units"] + 4
+    code = torch.from_numpy(build_tables(np.array([2.0, 1.0, 5.0, 0.5]),
+                                         True).code).to(cuda)
+    d1 = sw.upload_codes(c1, l1k, cuda)
+    d2 = sw.upload_codes(c2, l2p, cuda)
+    got = sw.sweep(d1, d2, code)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sw.sweep_plain(d1, d2, code))
+
+
+def test_sweep_refuses_misaligned_operands(cuda):
+    code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]),
+                                         False).code).to(cuda)
+    flat = torch.full((1 + 256 + 64,), PAD_CODE, dtype=torch.uint8, device=cuda)
+    c2 = torch.full((64,), PAD_CODE, dtype=torch.uint8, device=cuda)
+    before = sw.launches
+    with pytest.raises(ValueError, match="aligned"):
+        sw.sweep(flat[1:], c2, code)
+    with pytest.raises(ValueError, match="aligned"):
+        sw.sweep(flat[:-1], flat[1: 65], code)
+    assert sw.launches == before
+    assert sw.sweep(flat[:-1], c2, code).shape == (5, 256)
 
 
 @pytest.mark.parametrize("variant,n1,n2,other", [
@@ -166,7 +218,7 @@ def test_batched_kernels_match_plain(cuda, b, n1, n2, other, ragged):
 
 def warp_slots(cuda, l2p):
     """The warp workers a batched launch with Seq2 rows of l2p holds."""
-    return sw.batched_plan(l2p, sw.BATCH_TILE_O, 1, False)["blocks_per_sm"] * 4 * (
+    return sw.batched_plan(l2p, sw.TILE_O, 1, False)["blocks_per_sm"] * 4 * (
         torch.cuda.get_device_properties(cuda).multi_processor_count)
 
 

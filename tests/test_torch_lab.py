@@ -146,7 +146,7 @@ def test_sweep_v3_plain_is_sweep_plain_without_row_3():
     d1 = sw.upload_codes(codes(rng, 900, "lenient"), l1k, "cpu")
     d2 = sw.upload_codes(codes(rng, 200, "lenient"), l2p, "cpu")
     code = torch.from_numpy(build_tables(np.array(WEIGHTS[2]), True).code)
-    want = sw.sweep_plain(d1, d2, code, tile=v2.TILE, align=v2.CHUNK)
+    want = sw.sweep_rows_plain(d1, d2, code, tile=v2.TILE, align=v2.CHUNK)
     assert torch.equal(v2.sweep_v2_plain(d1, d2, code), want)
     want[3] = 0
     assert torch.equal(v3.sweep_v3_plain(d1, d2, code), want)

@@ -17,6 +17,13 @@ just after:
   each bucket of 1024-offset keys;
 - the kernel lab (`psa_torch.utils.kernel_lab`): v1, v2 and v3 in turns
   with `--check` at 131072 x 8192, and its command line once at 100k x 10k.
+- the host backends on the native host library (psa_torch/native, built
+  with g++ at first use; the smoke fails unless it builds, self-tests and
+  answers host selection): the north-star query through `torch`, `native`,
+  `auto` and `hybrid` at device shares 0, 50 and 100, 1,000,000 x 2,048
+  through `torch` against `native`, the CLI's host backends against
+  `--backend numpy`, and the native engine's speed beside the card path's
+  fixed cost, from which `auto_threshold` is derived.
 Times the kernels (one launch per pair of CUDA events, and
 KERNEL_BACK_TO_BACK launches per pair), their plain versions and the paths'
 phases with CUDA events and synchronised host clocks, and prints one JSON
@@ -31,6 +38,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import platform
 import shutil
 import statistics
 import subprocess
@@ -53,6 +62,17 @@ NORTH_STAR_WINNER = (84944, 10, 10, -21596.0)
 # and its shared-Seq1 form (SHARED_DEDUP_r05.json): the 1024 Seq2 reads
 # against the one Seq1 of seed 0.
 BATCH = dict(b=1024, n1=2048, n2=512, weights=(1.0, 3.0, 4.0, 2.0), is_max=False)
+
+# The north-star query through every backend setting of the single-query
+# engine: (backend, device_share).
+NS_BACKENDS = [("torch", None), ("native", None), ("auto", None),
+               ("hybrid", 0.0), ("hybrid", 50.0), ("hybrid", 100.0)]
+# Long Seq1 end to end (NORTHSTAR_r05's big_seq1 shape):
+# random_sequences(1_000_000, 2048, seed=1), weights 1 3 4 2, minimum.
+LONG_SEQ1 = dict(n1=1_000_000, n2=2048, seed=1)
+# Shapes at which the card path's fixed cost per query and the native
+# engine's time are measured side by side for `auto_threshold`.
+SMALL_SHAPES = [(1000, 100), (5000, 500), (20_000, 2000), (50_000, 5000)]
 
 # The kernel lab's query (benchmarks/kernel_lab.py's defaults, the bench.py
 # shape): random_sequences(131072, 8192, seed=0), weights 1 3 4 2, minimum;
@@ -181,6 +201,68 @@ def random_codes(rng, n: int, hyphen_p: float = 0.0, other_p: float = 0.0):
     codes[rng.random(n) < hyphen_p] = 26
     codes[rng.random(n) < other_p] = 27
     return codes
+
+
+def cpu_info() -> dict:
+    """The host CPU's model and cores, as the native engine sees them (a
+    virtual machine may report its model name as "unknown": the vendor,
+    family, model number and vector extensions then say what it is)."""
+    fields = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for ln in f:
+            key, _, val = ln.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    flags = fields.get("flags", "").split()
+    return {"cpu_model": fields.get("model name", platform.processor()),
+            "cpu_vendor": fields.get("vendor_id"),
+            "cpu_family_model": [fields.get("cpu family"), fields.get("model")],
+            "cpu_vector": [x for x in ("avx2", "avx512f", "avx512bw") if x in flags],
+            "cpu_count": os.cpu_count(), "cpus_usable": len(os.sched_getaffinity(0))}
+
+
+def openmp_runtimes() -> list:
+    """The OpenMP runtimes mapped into this process (torch ships its own
+    libgomp; the native library links the system's)."""
+    paths = set()
+    with open("/proc/self/maps") as f:
+        for ln in f:
+            parts = ln.split()
+            if len(parts) >= 6 and any(k in parts[-1] for k in ("gomp", "libomp", "iomp")):
+                paths.add(parts[-1])
+    return sorted(paths)
+
+
+def host_engine_phase(torch, native):
+    """Build (or find) and self-test the native host library; the phase's
+    JSON object."""
+    path = Path(native.lib_path())
+    prebuilt = path.is_file()
+    t0 = time.perf_counter()
+    try:
+        native.get_lib()
+        error = None
+    except (RuntimeError, OSError) as e:
+        error = str(e)[-600:]
+    ok = native.available()
+    return {"phase": "host_engine", "engine": native.host_engine(),
+            "library": str(path.relative_to(ROOT)) if path.is_relative_to(ROOT) else str(path),
+            "built_now": not prebuilt, "build_s": time.perf_counter() - t0,
+            "self_test": "passed" if ok else "failed", "error": error,
+            "omp_threads": native.omp_max_threads() if ok else None,
+            "torch_threads": torch.get_num_threads(),
+            "openmp_runtimes": openmp_runtimes(), **cpu_info()}
+
+
+def wall_ms(fn, runs: int, warm: int = 1):
+    """(median, min, max) host ms of fn() over `runs` warm runs."""
+    for _ in range(warm):
+        fn()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), min(walls), max(walls)
 
 
 def zero_launches(sw, v2, v3) -> None:
@@ -483,7 +565,9 @@ def batch_split(torch, batch, alphabet, queries, dtabs, shared: bool, runs: int)
     """The batch path for one 1024-query bucket, phase by phase with a
     synchronise after each: host prep (validation, encode), upload, device
     (kernel, epilogue, pack), fetch, host selection.  Median ms per phase
-    over `runs` warm runs; returns (split, results of the last run)."""
+    over `runs` warm runs; returns (split, results of the last run, queries
+    of the last run whose f32 band held more than k offsets, the near > k
+    fallbacks)."""
     split = {k: [] for k in ("host_prep", "upload", "device", "fetch",
                              "host_select", "total")}
     dev = dtabs.code.device
@@ -518,7 +602,8 @@ def batch_split(torch, batch, alphabet, queries, dtabs, shared: bool, runs: int)
             for name, a, b in zip(list(split)[:5], t, t[1:]):
                 split[name].append((b - a) * 1e3)
             split["total"].append((t[-1] - t[0]) * 1e3)
-    return {k: statistics.median(v) for k, v in split.items()}, res
+    return ({k: statistics.median(v) for k, v in split.items()}, res,
+            int((near > batch.TOPK).sum()))
 
 
 def traced_busy(torch, fn):
@@ -549,6 +634,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
 
+    from psa_torch import native
+    from psa_torch.config import CONFIG
     from psa_torch.core import alphabet
     from psa_torch.core.alphabet import encode
     from psa_torch.core.tables import build_tables, device_tables
@@ -586,6 +673,10 @@ def main() -> int:
           "ptxas": ptxas})
     sass = kernel_lab.sass_loop_mix(kernel_lab.sass_of(lib._name))
     emit({"phase": "sass_loop_mix", "kernels": sass})
+    host = host_engine_phase(torch, native)
+    emit(host)
+    if host["engine"] != "native":
+        return fail(f"the native host engine did not build: {host['error']}")
 
     # 3. kernels vs their plain versions, on the card
     t_ns = build_tables(np.array(NORTH_STAR["weights"]), False)
@@ -603,6 +694,7 @@ def main() -> int:
     s1, s2 = random_sequences(NORTH_STAR["n1"], NORTH_STAR["n2"],
                               seed=NORTH_STAR["seed"])
     zero_launches(sw, v2, v3)
+    native.calls.clear()
     eng = AlignmentSearchEngine(NORTH_STAR["weights"], NORTH_STAR["is_max"],
                                 backend="torch")
     t0 = time.perf_counter()
@@ -630,6 +722,28 @@ def main() -> int:
           "seconds": cli_s, "stderr_tail": cli.stderr[-400:]})
     if not cli_ok:
         return fail("psa_torch CLI output differs from format_output of the winner")
+    small_s1, small_s2 = random_sequences(20_000, 2000, seed=3, hyphen_p=0.05)
+    small_inp = work / "small.txt"
+    write_input_file(str(small_inp), (2.0, 1.0, 5.0, 0.5), small_s1, small_s2, True)
+    outs = {}
+    for tag, extra in (("numpy", ["--backend", "numpy"]),
+                       ("native", ["--backend", "native"]),
+                       ("auto", ["--backend", "auto"]),
+                       ("hybrid_50", ["--backend", "hybrid", "--device-share", "50"]),
+                       ("share_-100", ["--device-share", "-100"])):
+        o = work / f"small_{tag}.txt"
+        o.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "psa_torch.utils.cli",
+                               str(small_inp), "-o", str(o), "--quiet", *extra],
+                              cwd=ROOT, capture_output=True, text=True, timeout=300)
+        outs[tag] = o.read_bytes() if proc.returncode == 0 and o.is_file() else None
+        emit({"phase": "cli_backend", "backend": tag, "argv": extra,
+              "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+              "bytes_equal_numpy": outs[tag] == outs["numpy"],
+              "stderr_tail": proc.stderr[-300:]})
+        if outs[tag] is None or outs[tag] != outs["numpy"]:
+            return fail(f"psa-torch {' '.join(extra)} differs from --backend numpy")
 
     qrng = np.random.default_rng(7)
     queries = [((1.0, 3.0, 4.0, 2.0), False, 20000, 2000, 0.0),
@@ -650,9 +764,40 @@ def main() -> int:
         if ta != tb:
             return fail(f"card {ta} != numpy {tb}")
     single_launches = read_launches(sw, v2, v3)
-    emit({"phase": "main_path_launches", "path": "single_query", **single_launches})
+    single_native = dict(native.calls)
+    emit({"phase": "main_path_launches", "path": "single_query", **single_launches,
+          "native_calls": single_native})
     if single_launches["sweep"] < 1 + len(queries):
         return fail("the single-query path did not go through the sweep kernel")
+    if single_native.get("rescore_batch", 0) < 1 + len(queries):
+        return fail("host selection of the single-query path did not run native")
+
+    # 4a. the north-star query through every backend setting, each with the
+    # counts zeroed just before it and read just after
+    ns_engines = {}
+    for backend, share in NS_BACKENDS:
+        tag = backend if share is None else f"{backend}_{share:g}"
+        ns_engines[tag] = AlignmentSearchEngine(
+            NORTH_STAR["weights"], NORTH_STAR["is_max"], backend=backend,
+            device_share=share)
+        zero_launches(sw, v2, v3)
+        native.calls.clear()
+        r = ns_engines[tag].search(s1, s2)
+        got = (r.offset, r.char_offset, r.sub_code, r.score)
+        launches = read_launches(sw, v2, v3)
+        calls = dict(native.calls)
+        emit({"phase": "main_path_launches", "path": f"north_star_{tag}",
+              "winner": list(got), **launches, "native_calls": calls})
+        if got != NORTH_STAR_WINNER:
+            return fail(f"north star through {tag}: {got} != {NORTH_STAR_WINNER}")
+        on_card = tag in ("torch", "auto", "hybrid_50", "hybrid_100")
+        if launches["sweep"] != (1 if on_card else 0):
+            return fail(f"north star through {tag} launched sweep "
+                        f"{launches['sweep']} times")
+        if on_card and calls.get("rescore_batch", 0) != 1:
+            return fail(f"host selection of {tag} did not run native")
+        if not on_card and calls.get("search", 0) != 1:
+            return fail(f"{tag} did not run the native engine")
 
     # 4b. the batch path, end to end: 1024 queries with their own Seq1 and
     # 1024 reads against one shared Seq1; the launch counts are read around
@@ -666,6 +811,7 @@ def main() -> int:
     wide = batch_queries(Query, random_sequences, shared=False, b=8 * BATCH["b"])
     bres, first = {}, {}
     zero_launches(sw, v2, v3)
+    native.calls.clear()
     for name, qs in bq.items():
         t0 = time.perf_counter()
         bres[name] = search_batch(qs)
@@ -674,9 +820,13 @@ def main() -> int:
     wide_res = search_batch(wide)
     wide_s = time.perf_counter() - t0
     batch_launches = read_launches(sw, v2, v3)
-    emit({"phase": "main_path_launches", "path": "batch", **batch_launches})
+    batch_native = dict(native.calls)
+    emit({"phase": "main_path_launches", "path": "batch", **batch_launches,
+          "native_calls": batch_native})
     if batch_launches["sweep_batched"] < 1 or batch_launches["sweep_batched_shared"] < 1:
         return fail("the batch path did not go through both batched kernels")
+    if min(batch_native.get(k, 0) for k in ("rescore_multi", "encode_padded")) < 1:
+        return fail("the batch path's host prep or selection did not run native")
     emit({"phase": "batch_8_microbatches", "queries": len(wide),
           "first_call_s": wide_s, "first_1024_equal": wide_res[:BATCH["b"]] == bres["per_row"]})
     if wide_res[:BATCH["b"]] != bres["per_row"]:
@@ -685,22 +835,25 @@ def main() -> int:
     for name, qs in bq.items():
         sample = sorted(srng.choice(len(qs), 64, replace=False).tolist())
         want = search_batch([qs[i] for i in sample], backend="numpy")
+        want_native = search_batch([qs[i] for i in sample], backend="native")
         got = [bres[name][i] for i in sample]
         emit({"phase": "batch_vs_numpy", "workload": name, "queries": len(qs),
               "sampled": len(sample), "equal": got == want,
+              "equal_native": got == want_native,
               "first_call_s": first[name],
               "no_mutation": sum(r is None for r in bres[name]),
               "winner_0": [got[0].offset, got[0].char_offset, got[0].sub_code,
                            got[0].score] if got[0] else None})
-        if got != want:
-            return fail(f"batch path {name} differs from the numpy backend")
+        if got != want or got != want_native:
+            return fail(f"batch path {name} differs from the numpy or native backend")
 
     bdir = ROOT / "psa_torch" / "_build" / "smoke_batch"
     bdir.mkdir(parents=True, exist_ok=True)
     cases_txt = bdir / "cases.txt"
     n_cases = write_batch_cases(cases_txt, generator, random_sequences)
     runs = {}
-    for tag, extra in (("card", []), ("numpy", ["--backend", "numpy"])):
+    for tag, extra in (("card", []), ("numpy", ["--backend", "numpy"]),
+                       ("auto", ["--backend", "auto"])):
         out = bdir / f"outs_{tag}"
         shutil.rmtree(out, ignore_errors=True)
         t0 = time.perf_counter()
@@ -710,19 +863,20 @@ def main() -> int:
                               capture_output=True, text=True, timeout=600)
         runs[tag] = (proc, time.perf_counter() - t0,
                      {f.name: f.read_bytes() for f in sorted(out.glob("out_*.txt"))})
-    (pc, pc_s, fc), (pn, pn_s, fn) = runs["card"], runs["numpy"]
-    cli_batch_ok = (pc.returncode == pn.returncode == 1 and len(fc) == n_cases
-                    and fc == fn)
+    (pc, pc_s, fc), (pn, pn_s, fn), (pa, pa_s, fa) = (runs["card"], runs["numpy"],
+                                                      runs["auto"])
+    cli_batch_ok = (pc.returncode == pn.returncode == pa.returncode == 1
+                    and len(fc) == n_cases and fc == fn and fa == fn)
     emit({"phase": "cli_batch", "cases": n_cases, "rc_card": pc.returncode,
-          "rc_numpy": pn.returncode, "files": len(fc), "bytes_equal": fc == fn,
-          "seconds_card": pc_s, "seconds_numpy": pn_s,
-          "stderr_tail": pc.stderr[-400:]})
+          "rc_numpy": pn.returncode, "rc_auto": pa.returncode, "files": len(fc),
+          "bytes_equal": fc == fn, "bytes_equal_auto": fa == fn,
+          "seconds_card": pc_s, "seconds_numpy": pn_s, "seconds_auto": pa_s,
+          "stderr_tail": pc.stderr[-400:] + pa.stderr[-400:]})
     if not cli_batch_ok:
-        return fail("psa-torch --batch differs from its numpy backend")
+        return fail("psa-torch --batch (card or auto) differs from its numpy backend")
     # the same file through search_batch in this process: one batched launch
     # per microbatch of each bucket, the buckets keyed on offsets rounded to
     # 1024 (as before the sweep's tiles shrank to 256)
-    from psa_torch.config import CONFIG
     from psa_torch.utils.io import read_cases
 
     file_cases = read_cases(str(cases_txt))
@@ -822,7 +976,8 @@ def main() -> int:
                 split[name].append((b - a) * 1e3)
             split["total"].append((t[-1] - t[0]) * 1e3)
     e2e = {k: statistics.median(v) for k, v in split.items()}
-    emit({"phase": "north_star_split_ms", **e2e, "runs": len(split["total"])})
+    emit({"phase": "north_star_split_ms", **e2e, "runs": len(split["total"]),
+          "host_engine": native.host_engine()})
 
     # the same query through the engine, unsynchronised between phases, and
     # one traced run for the device's busy time
@@ -838,6 +993,65 @@ def main() -> int:
           "device_busy_ms": busy_ms if busy_ms > 0 else None,
           "device_idle_share": 1 - busy_ms / traced_ms if busy_ms > 0 else None,
           "device_top": top})
+
+    # every backend setting on the north star: median of 10 warm runs
+    ns_ms = {tag: wall_ms(lambda: eng_b.search(s1, s2), runs=10)
+             for tag, eng_b in ns_engines.items()}
+    emit({"phase": "north_star_backends_ms", "runs": 10,
+          **{tag: {"median": m, "min": lo, "max": hi}
+             for tag, (m, lo, hi) in ns_ms.items()}})
+
+    # long Seq1 end to end: the card path against the native engine, tuple
+    # and score bits; its near > k fallbacks from one run of the device half
+    s1l, s2l = random_sequences(LONG_SEQ1["n1"], LONG_SEQ1["n2"], seed=LONG_SEQ1["seed"])
+    eng_native = ns_engines["native"]
+    long_res, long_ms = {}, {}
+    for tag, eng_l in (("torch", eng), ("native", eng_native)):
+        long_res[tag] = eng_l.search(s1l, s2l)
+        long_ms[tag] = wall_ms(lambda: eng_l.search(s1l, s2l), runs=3, warm=0)
+    c1l, c2l = encode(s1l), encode(s2l)
+    noff_l, _, l2p_l, l1k_l = sw.plan_shapes(c1l.shape[0], c2l.shape[0])
+    packed_l, _ = batch.run_exact(sw.upload_codes(c1l, l1k_l, dev),
+                                  sw.upload_codes(c2l, l2p_l, dev), noff_l, dtabs)
+    near_l = int(batch.unpack_epilogue_outputs(packed_l.cpu().numpy(), batch.TOPK)[2][0])
+    lt, ln = long_res["torch"], long_res["native"]
+    long_equal = ((lt.offset, lt.char_offset, lt.sub_code) == (ln.offset, ln.char_offset,
+                                                               ln.sub_code)
+                  and lt.score.hex() == ln.score.hex())
+    pe_long = float(noff_l) * LONG_SEQ1["n2"]
+    emit({"phase": "long_seq1", "n1": LONG_SEQ1["n1"], "n2": LONG_SEQ1["n2"],
+          "torch": [lt.offset, lt.char_offset, lt.sub_code, lt.score],
+          "native": [ln.offset, ln.char_offset, ln.sub_code, ln.score],
+          "equal_bits": long_equal, "near": near_l, "fallback": near_l > batch.TOPK,
+          "torch_ms": long_ms["torch"], "native_ms": long_ms["native"],
+          "native_pair_evals_per_s": pe_long / (long_ms["native"][0] * 1e-3)})
+    if not long_equal:
+        return fail("1M x 2048: the card path and the native engine differ")
+
+    # auto_threshold: the native engine's pair-evals/s (all threads) and the
+    # card path's fixed cost per query, from the engine's latency at small
+    # shapes; the crossover is where the native engine's time reaches it
+    rng_small = np.random.default_rng(5)
+    small = []
+    for n1, n2 in SMALL_SHAPES:
+        c1s, c2s = random_codes(rng_small, n1), random_codes(rng_small, n2)
+        t_ms = wall_ms(lambda: eng.search_codes(c1s, c2s), runs=10)
+        n_ms = wall_ms(lambda: eng_native.search_codes(c1s, c2s), runs=10)
+        small.append({"n1": n1, "n2": n2, "pair_evals": (n1 - n2 + 1) * n2,
+                      "torch_ms": t_ms, "native_ms": n_ms})
+    rate_ns = ((NORTH_STAR["n1"] - NORTH_STAR["n2"] + 1) * NORTH_STAR["n2"]
+               / (ns_ms["native"][0] * 1e-3))
+    torch_fixed_ms = statistics.median(row["torch_ms"][0] for row in small[:2])
+    native_fixed_ms = small[0]["native_ms"][0]
+    derived = (torch_fixed_ms - native_fixed_ms) * 1e-3 * rate_ns
+    crossed = [row["pair_evals"] for row in small if row["torch_ms"][0] < row["native_ms"][0]]
+    emit({"phase": "auto_threshold", "native_pair_evals_per_s_100kx10k": rate_ns,
+          "native_pair_evals_per_s_1Mx2048": pe_long / (long_ms["native"][0] * 1e-3),
+          "torch_fixed_ms": torch_fixed_ms, "native_fixed_ms": native_fixed_ms,
+          "derived_threshold": derived,
+          "first_shape_where_torch_is_faster": crossed[0] if crossed else None,
+          "config_threshold": CONFIG.auto_threshold,
+          "omp_threads": native.omp_max_threads(), "small_shapes": small})
 
     # 5b. the batched kernels at the batch workload's shape (B = 1024 of
     # 2048 x 512) at the batch path's padding (noff_pad 1792) and at whole
@@ -894,8 +1108,8 @@ def main() -> int:
                                          BATCH["is_max"]), dev)
     for name, qs in bq.items():
         shared = name == "shared_s1"
-        split, res_split = batch_split(torch, batch, alphabet, qs, dtabs_b,
-                                       shared, runs=10)
+        split, res_split, fallbacks = batch_split(torch, batch, alphabet, qs, dtabs_b,
+                                                  shared, runs=10)
         if res_split != bres[name]:
             return fail(f"the phased batch run of {name} changed its results")
         walls = []
@@ -906,7 +1120,8 @@ def main() -> int:
         traced_ms, busy_ms, top = traced_busy(torch, lambda: search_batch(qs))
         med = statistics.median(walls)
         emit({"phase": "batch_path_ms", "workload": name, "queries": len(qs),
-              "split_ms": split, "split_runs": 10,
+              "split_ms": split, "split_runs": 10, "near_gt_k_fallbacks": fallbacks,
+              "host_engine": native.host_engine(),
               "search_batch_ms": med, "min": min(walls), "max": max(walls),
               "runs": len(walls), "queries_per_s": len(qs) / (med * 1e-3),
               "traced_ms": traced_ms,

@@ -29,6 +29,21 @@ class EngineConfig:
     # of the next (models/batch.batched_search_exact)
     micro_batch: int = _env_int("PSA_MICRO_BATCH", 1024)
 
+    # `auto` crossover in pair-evals ((n1 - n2 + 1) * n2): below it a query,
+    # or a batch bucket in total, runs on the native host engine, at or
+    # above it on the card (PSA_AUTO_THRESHOLD overrides).  Nothing compiles
+    # at run time here, unlike the JAX package's 2e8 (set against Mosaic
+    # compiles), so it is the point where the native engine's time reaches
+    # the card path's fixed cost per query.  chip_smoke.py's `auto_threshold`
+    # phase measured, on an NVIDIA H100 80GB HBM3 at 700 W whose host gives
+    # 8 cores: the native engine at 2.9e9-3.8e9 pair-evals/s on all 8
+    # threads (100k x 10k), 0.15-0.25 ms at 9e4 pair-evals; the card path
+    # at 2.85-3.35 ms per query at small shapes.
+    # (2.85-3.35 - 0.15-0.25) ms x 2.9e9-3.8e9/s = 9.0e6-1.02e7; the native
+    # engine won at 2.25e6 (0.82-0.95 ms against 2.79-3.46) and lost at
+    # 3.6e7 (13.8-15.5 ms against 2.95-2.98).
+    auto_threshold: int = _env_int("PSA_AUTO_THRESHOLD", 10_000_000)
+
     # defaults mirroring the reference CLI contract (def.h:20-21)
     default_input: str = "./input.txt"
     default_output: str = "./output.txt"

@@ -72,8 +72,12 @@ def validate(seq: str) -> bool:
 
 def encode_batch_padded(seqs, length: int) -> np.ndarray:
     """Encode many sequences into one PAD-padded (len(seqs), length) uint8
-    array with one table gather over the joined bytes (the kernels' input
-    type, so the upload needs no cast)."""
+    array (the kernels' input type, so the upload needs no cast): one C
+    pass of the native library when it builds, else one table gather over
+    the joined bytes and a copy per row; the same table and the same
+    bytes either way."""
+    from psa_torch import native    # the library's module imports this one
+
     n = len(seqs)
     lens = np.fromiter((len(s) for s in seqs), np.int64, n)
     if lens.size and int(lens.max()) > length:
@@ -81,6 +85,10 @@ def encode_batch_padded(seqs, length: int) -> np.ndarray:
         raise ValueError(
             f"sequence length {len(seqs[i])} exceeds padded length {length}")
     joined = "".join(seqs).encode("ascii", errors="replace")
+    if native.available():
+        offs = np.zeros(n, np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        return native.encode_padded_native(joined, offs, lens, length)
     codes = _ENC8[np.frombuffer(joined, np.uint8)]
     buf = np.full((n, length), PAD_CODE, np.uint8)
     o = 0

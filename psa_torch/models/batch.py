@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from psa_torch import native
 from psa_torch.config import CONFIG
 from psa_torch.core.alphabet import (ALPHABET_ERROR, encode_batch_padded,
                                      validate_batch)
@@ -40,7 +41,8 @@ from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    build_tables_cached, device_tables,
                                    f32_band_epsilon)
-from psa_torch.models.search import AlignmentSearchEngine, resolve_device
+from psa_torch.models.search import (AlignmentSearchEngine, pair_evals,
+                                     resolve_device)
 from psa_torch.ops.common import keyed_f32_totals_ops
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
@@ -373,8 +375,10 @@ def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
     """Bit-exact winner selection for many queries with no per-query Python
     in the arithmetic: totals -> epsilon band -> sequential re-score in
     ascending offset order -> first bit-equal best, on (rows, k) blocks,
-    with every candidate of the microbatch re-scored together by
-    `rescore_multi` (about max(n2) numpy steps per microbatch)."""
+    with every candidate of the microbatch re-scored together: one call of
+    the native `rescore_multi_native` when the library builds, else the
+    numpy `rescore_multi` (about max(n2) numpy steps per microbatch); the
+    two agree bit for bit."""
     idx = topi[rows]                                       # (R, k)
     st = stats_k[rows]                                     # (R, k, 5)
     r_n, k = idx.shape
@@ -399,8 +403,9 @@ def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
     if qidx.shape[0] == 0:
         return
 
-    totals_seq, coffs, subs = rescore_multi(c1b, c2b, n2s, tables, qidx,
-                                            offs)
+    rescore = (native.rescore_multi_native if native.available()
+               else rescore_multi)
+    totals_seq, coffs, subs = rescore(c1b, c2b, n2s, tables, qidx, offs)
     totals_seq = np.where(coffs >= 0, totals_seq, badv)
 
     # per-group winner: best total, first occurrence in ascending order
@@ -419,10 +424,10 @@ def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
 
 
 def _host_engine_bucket(queries, idxs, results: list, w, is_max,
-                        strict_alphabet: bool) -> None:
-    """Run one bucket on the numpy host engine (the bucket key guarantees
-    shared (weights, mode))."""
-    eng = AlignmentSearchEngine(np.asarray(w), is_max, backend="numpy",
+                        host_backend: str, strict_alphabet: bool) -> None:
+    """Run one bucket on a host engine, "native" or "numpy" (the bucket key
+    guarantees shared (weights, mode))."""
+    eng = AlignmentSearchEngine(np.asarray(w), is_max, backend=host_backend,
                                 strict_alphabet=strict_alphabet)
     for i in idxs:
         q = queries[i]
@@ -430,6 +435,9 @@ def _host_engine_bucket(queries, idxs, results: list, w, is_max,
             results[i] = eng.search(q.seq1, q.seq2)
         except NoMutationFound:
             results[i] = None
+
+
+_BATCH_BACKENDS = ("torch", "numpy", "native", "auto")
 
 
 def search_batch(queries, backend: str = "torch",
@@ -441,13 +449,24 @@ def search_batch(queries, backend: str = "torch",
     padding of `plan_bucket` (its longest query in warp tiles) and runs as
     one `batched_search_exact` on the card (`device=None`; raises without one)
     or on `device`, through the shared-Seq1 kernel when every query of the
-    bucket has the same Seq1.  backend="numpy" runs every bucket on the
-    host oracle instead.  Results come back in input order; None marks a
-    query with no legal mutation."""
-    if backend not in ("torch", "numpy"):
+    bucket has the same Seq1.  backend="numpy" or "native" runs every
+    bucket on that host engine instead; "auto" sends a bucket to the device
+    when its pair-evals reach `CONFIG.auto_threshold` and to the native
+    engine below it (to the device when the library does not build).
+    Results come back in input order; None marks a query with no legal
+    mutation."""
+    if backend == "hybrid":
+        # the hybrid split divides ONE query's offsets (cpu_funcs.c:144-150);
+        # a batch gets its parallelism from the query axis
+        raise ValueError("the hybrid backend applies to single-query "
+                         "searches only; use backend='auto' or 'torch' "
+                         "for batches")
+    if backend not in _BATCH_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from "
-                         "('torch', 'numpy')")
-    dev = resolve_device(device) if backend == "torch" else None
+                         f"{_BATCH_BACKENDS}")
+    if backend == "native":
+        native.get_lib()            # raises when the library cannot be built
+    dev = resolve_device(device) if backend in ("torch", "auto") else None
     results: list = [None] * len(queries)
     if strict_alphabet and queries:
         ok = (validate_batch([q.seq1 for q in queries])
@@ -461,8 +480,13 @@ def search_batch(queries, backend: str = "torch",
         buckets.setdefault(key, []).append(i)
 
     for (w, is_max, _, l2p), idxs in buckets.items():
-        if dev is None:
-            _host_engine_bucket(queries, idxs, results, w, is_max,
+        host = backend if backend in ("numpy", "native") else None
+        if (backend == "auto" and native.available()
+                and sum(pair_evals(len(queries[i].seq1), len(queries[i].seq2))
+                        for i in idxs) < CONFIG.auto_threshold):
+            host = "native"
+        if host is not None:
+            _host_engine_bucket(queries, idxs, results, w, is_max, host,
                                 strict_alphabet)
             continue
         dtabs = device_tables(build_tables_cached(np.asarray(w), is_max), dev)

@@ -4,22 +4,38 @@ Replaces the reference's orchestration stack (main.c:13-56 ->
 cpu_funcs.c:25-218): compute per-offset integer statistics, select the exact
 winner on the host.
 
-Backends (both share the same output contract — see ops/select.py):
+Backends (all share the same output contract — see ops/select.py):
 
-* ``torch`` — the device path: the CUDA sweep kernel, the top-k epilogue on
-              the device, one fetch, exact host selection (models/batch.py).
-              Runs on the card; `device="cpu"` runs the same path with the
-              kernel's plain PyTorch version.
-* ``numpy`` — vectorized host oracle (core/oracle.py); exact, runs anywhere.
+* ``torch``  — the device path: the CUDA sweep kernel, the top-k epilogue on
+               the device, one fetch, exact host selection (models/batch.py).
+               Runs on the card; `device="cpu"` runs the same path with the
+               kernel's plain PyTorch version.  The default.
+* ``numpy``  — vectorized host oracle (core/oracle.py); exact, runs anywhere.
+* ``native`` — the C++/OpenMP host engine (psa_torch/native), the
+               reference's semantics at native speed; needs no device, and
+               raises when the library cannot be built.
+* ``auto``   — per query: `native` below `CONFIG.auto_threshold` pair-evals
+               (when the library builds), else `torch` — the reference's
+               CPU/GPU crossover (cpu_funcs.c:135-142).  Its device is
+               resolved like `torch`'s: without a card it raises rather than
+               turning to the host.
+* ``hybrid`` — one query split between the two: the device takes the first
+               `device_share` % of offsets, the native engine the rest at
+               the same time, and the winners merge under the canonical
+               tie-break — the reference's cuda_percentage split
+               (cpu_funcs.c:144-150).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from psa_torch import native
+from psa_torch.config import CONFIG
 from psa_torch.core.alphabet import encode, validate
 from psa_torch.core.oracle import offset_stats_numpy
 from psa_torch.core.result import NoMutationFound, SearchResult
@@ -27,7 +43,8 @@ from psa_torch.core.tables import (ScoringTables, build_tables_cached,
                                    device_tables)
 from psa_torch.ops.select import select_best
 
-_BACKENDS = ("torch", "numpy")
+_BACKENDS = ("torch", "numpy", "native", "auto", "hybrid")
+_DEVICE_BACKENDS = ("torch", "auto", "hybrid")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,20 +58,52 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def native_available() -> bool:
+    """True when the C++ host engine builds (g++ present) and self-tests."""
+    return native.available()
+
+
+def pair_evals(n1: int, n2: int) -> int:
+    """(offset, position) pairs a query of these lengths sweeps."""
+    return max(n1 - n2 + 1, 0) * n2
+
+
+def resolve_auto(n1: int, n2: int) -> str:
+    """The backend `auto` takes for one query: `native` below
+    `CONFIG.auto_threshold` pair-evals when the library builds, else
+    `torch`.  Unlike the JAX package's, it never picks the host because no
+    accelerator is present: `auto`'s device is resolved, and checked, when
+    the engine is made."""
+    if pair_evals(n1, n2) < CONFIG.auto_threshold and native_available():
+        return "native"
+    return "torch"
+
+
 class AlignmentSearchEngine:
     """Searches every (offset, position, substitution) triple for the best
     single-character mutation of seq2 aligned under seq1."""
 
     def __init__(self, weights: Sequence[float], is_max: bool,
                  backend: str = "torch", strict_alphabet: bool = True,
-                 device=None):
+                 device=None, nthreads: int = 0,
+                 device_share: float | None = None):
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {_BACKENDS}")
         self.tables: ScoringTables = build_tables_cached(
             np.asarray(weights, np.float64), is_max)
         self.backend = backend
         self.strict_alphabet = strict_alphabet
-        self.device = resolve_device(device) if backend == "torch" else None
+        self.device = (resolve_device(device) if backend in _DEVICE_BACKENDS
+                       else None)
+        if backend == "native":
+            native.get_lib()        # raises when the library cannot be built
+        # native-engine thread count; 0 = all cores, 1 = the reference's
+        # sequential oracle mode (`make runseq`)
+        self.nthreads = nthreads
+        # hybrid: percentage of offsets the device takes (main.c:30-42
+        # cuda_percentage); None = all-device at or above the auto
+        # threshold, all-host below it
+        self.device_share = device_share
         self._dtabs = None
 
     def _device_tables(self):
@@ -62,10 +111,22 @@ class AlignmentSearchEngine:
             self._dtabs = device_tables(self.tables, self.device)
         return self._dtabs
 
+    def _resolve_backend(self, codes1: np.ndarray, codes2: np.ndarray) -> str:
+        if self.backend != "auto":
+            return self.backend
+        return resolve_auto(codes1.shape[0], codes2.shape[0])
+
     def offset_stats(self, codes1: np.ndarray, codes2: np.ndarray):
         """Per-offset (counts (noff,4) int32, maxrank (noff,) int32)."""
-        if self.backend == "numpy":
+        backend = self._resolve_backend(codes1, codes2)
+        if backend == "hybrid":
+            # stats cover the whole range; the split shapes only the winner
+            # search, so the host engine serves them
+            backend = "native" if native_available() else "numpy"
+        if backend == "numpy":
             return offset_stats_numpy(codes1, codes2, self.tables)
+        if backend == "native":
+            return native.offset_stats_native(codes1, codes2, self.tables)
         from psa_torch.ops.sweep import offset_stats
 
         return offset_stats(codes1, codes2, self.tables, self.device)
@@ -75,8 +136,16 @@ class AlignmentSearchEngine:
         codes2 = np.asarray(codes2, dtype=np.int32)
         if codes2.shape[0] > codes1.shape[0]:
             raise ValueError("seq2 must not be longer than seq1")
-        if self.backend == "torch":
+        backend = self._resolve_backend(codes1, codes2)
+        if backend == "native":
+            # the native engine applies the reference's sequential semantics
+            # directly: no separate selection pass
+            return native.search_native(codes1, codes2, self.tables,
+                                        nthreads=self.nthreads)
+        if backend == "torch":
             return self._device_exact(codes1, codes2)
+        if backend == "hybrid":
+            return self._search_hybrid(codes1, codes2)
         counts, maxrank = self.offset_stats(codes1, codes2)
         noff = codes1.shape[0] - codes2.shape[0] + 1
         return select_best(np.asarray(counts), np.asarray(maxrank),
@@ -92,6 +161,68 @@ class AlignmentSearchEngine:
         if res is None:
             raise NoMutationFound("no offset admits a legal substitution")
         return res
+
+    def _search_hybrid(self, codes1: np.ndarray, codes2: np.ndarray) -> SearchResult:
+        """One query split between the device and the host at the same time
+        (cpu_funcs.c:144-150): the device takes offsets [0, split), the
+        native engine [split, noff) in a thread (the ctypes call releases
+        the GIL), and the two winners merge under is_swapable
+        (cuda_funcs.cu:290-307): the better score, else the lower offset,
+        which the device block always holds.  Both sides produce
+        sequentially re-scored f64 totals, so the merge compares exact
+        values."""
+        n2 = codes2.shape[0]
+        noff = codes1.shape[0] - n2 + 1
+        share = self.device_share
+        if share is None:
+            share = (100.0 if pair_evals(codes1.shape[0], n2) >= CONFIG.auto_threshold
+                     else 0.0)
+        split = min(max(int(round(noff * share / 100.0)), 0), noff)
+        if split < noff and not native_available():
+            raise RuntimeError(
+                "the hybrid backend needs the native host engine (g++) for "
+                "its host block; use backend='torch' or device_share=100")
+        if split == 0:
+            return native.search_native(codes1, codes2, self.tables,
+                                        nthreads=self.nthreads)
+
+        host_out: list = [None, None]          # [result, exception]
+
+        def host_block():
+            try:
+                host_out[0] = native.search_native(
+                    codes1, codes2, self.tables, nthreads=self.nthreads,
+                    first_offset=split, last_offset=noff)
+            except NoMutationFound:
+                pass
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                host_out[1] = e
+
+        thread = None
+        if split < noff:
+            thread = threading.Thread(target=host_block, daemon=True)
+            thread.start()
+        try:
+            # the device block needs only the Seq1 prefix of offsets
+            # [0, split), whose offsets are the global ones
+            dev = self._device_exact(codes1[: split + n2 - 1], codes2)
+        except NoMutationFound:
+            dev = None
+        finally:
+            if thread is not None:
+                thread.join()
+        if host_out[1] is not None:
+            raise host_out[1]
+        host = host_out[0]
+        if dev is None and host is None:
+            raise NoMutationFound("no offset admits a legal substitution")
+        if host is None:
+            return dev
+        if dev is None:
+            return host
+        host_better = (host.score > dev.score if self.tables.is_max
+                       else host.score < dev.score)
+        return host if host_better else dev
 
     def search(self, seq1: str, seq2: str) -> SearchResult:
         if self.strict_alphabet and not (validate(seq1) and validate(seq2)):

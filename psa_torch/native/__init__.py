@@ -1,0 +1,361 @@
+"""ctypes bindings for the native C++ host engine (psa_native.cpp).
+
+The source is a byte-for-byte copy of the JAX package's, so both packages
+run the same host loops.  The shared library is built with g++ at first use
+into psa_torch/_build/, named by the source's hash and a CPU tag (it is
+-march=native, so a binary built on another machine could SIGILL); it is
+never committed.  After dlopen a small self-test runs against the port's
+numpy oracle before the handle is trusted.
+
+Callers that have a numpy path take it when `available()` is False; the
+`native` backend raises instead.  `calls` counts the wrapper calls that went
+through the library, so a run can show which host engine did the work.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+from psa_torch.core.result import NoMutationFound, SearchResult
+from psa_torch.core.tables import ScoringTables
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "psa_native.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
+_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
+_lock = threading.Lock()
+_lib = None
+_available: bool | None = None
+
+# wrapper calls answered by the library, by entry point
+calls: collections.Counter = collections.Counter()
+_calls_lock = threading.Lock()
+
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+
+
+def _count(name: str) -> None:
+    with _calls_lock:
+        calls[name] += 1
+
+
+def _cpu_tag() -> str:
+    """CPU-identity fingerprint: a build directory copied between machines
+    must not hand one a binary built for another's ISA.  Virtual machines
+    often share one model name over different instruction sets, so the
+    feature flags are part of it."""
+    ident = platform.machine()
+    want = ["model name", ("flags", "Features")]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                for key in want:
+                    if line.startswith(key):
+                        ident += line
+                        want.remove(key)
+                        break
+                if not want:
+                    break
+    except OSError:
+        ident += platform.processor()
+    return hashlib.sha256(ident.encode()).hexdigest()[:8]
+
+
+def lib_path() -> str:
+    """Where the library for this source and this CPU is (or will be)."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libpsa_host-{digest}-{_cpu_tag()}.so")
+
+
+def _build(path: str) -> None:
+    """g++ into a temporary file beside `path`, then one atomic rename, so
+    processes that build at the same time never load a partial file."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
+    os.close(fd)
+    try:
+        try:
+            proc = subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
+                                  capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError("the native host engine needs g++") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {_SRC}:\n"
+                               f"{proc.stderr[-2000:]}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _self_test(lib) -> None:
+    """One tiny end-to-end call; raises if the binary misbehaves."""
+    from psa_torch.core.oracle import offset_stats_numpy
+    from psa_torch.core.tables import build_tables
+
+    t = build_tables(np.array([1.0, 2.0, 3.0, 4.0]), is_max=False)
+    c1 = np.array([0, 1, 2, 3, 4], np.int32)   # ABCDE
+    c2 = np.array([0, 1], np.int32)            # AB
+    counts = np.empty((4, 4), np.int32)
+    maxrank = np.empty(4, np.int32)
+    lib.psa_offset_stats(c1, c2, 2,
+                         np.ascontiguousarray(t.sign.reshape(-1)),
+                         np.ascontiguousarray(t.rank.reshape(-1)),
+                         0, 4, counts.reshape(-1), maxrank)
+    ref_counts, ref_maxrank = offset_stats_numpy(c1, c2, t)
+    if not (np.array_equal(counts, ref_counts)
+            and np.array_equal(maxrank, ref_maxrank)):
+        raise RuntimeError("native library self-test failed")
+
+
+def get_lib():
+    """The loaded, self-tested library; builds it on first use.  Raises
+    RuntimeError when g++ is missing, the build fails or the self-test
+    fails, and OSError when the file cannot be loaded."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = lib_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
+        lib.psa_search.restype = ctypes.c_int
+        lib.psa_search.argtypes = [
+            _i32p, ctypes.c_int32, _i32p, ctypes.c_int32,
+            _f64p, _f64p, _i8p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.psa_score_offset.restype = None
+        lib.psa_score_offset.argtypes = [
+            _i32p, _i32p, ctypes.c_int32,
+            _f64p, _f64p, _i8p,
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.psa_offset_stats.restype = None
+        lib.psa_offset_stats.argtypes = [
+            _i32p, _i32p, ctypes.c_int32, _i8p, _i8p,
+            ctypes.c_int32, ctypes.c_int32, _i32p, _i32p,
+        ]
+        lib.psa_encode_padded.restype = None
+        lib.psa_encode_padded.argtypes = [
+            ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32,
+            _i8p, ctypes.c_int32,
+        ]
+        lib.psa_rescore_multi.restype = None
+        lib.psa_rescore_multi.argtypes = [
+            _i32p, ctypes.c_int32, _i32p, ctypes.c_int32, _i32p,
+            _f64p, _f64p, _i8p, ctypes.c_int32,
+            _i32p, _i64p, ctypes.c_int32,
+            _f64p, _i32p, _i32p,
+        ]
+        lib.psa_rescore_batch.restype = None
+        lib.psa_rescore_batch.argtypes = [
+            _i32p, _i32p, ctypes.c_int32,
+            _f64p, _f64p, _i8p, ctypes.c_int32,
+            _i64p, ctypes.c_int32,
+            _f64p, _i32p, _i32p,
+        ]
+        _self_test(lib)
+        _lib = lib
+        return lib
+
+
+def available() -> bool:
+    """Memoized build-and-self-test probe: one build attempt per process."""
+    global _available
+    if _available is None:
+        try:
+            get_lib()
+            _available = True
+        except (OSError, RuntimeError):
+            _available = False
+    return _available
+
+
+def host_engine() -> str:
+    """The engine host selection runs on: "native" or "numpy"."""
+    return "native" if available() else "numpy"
+
+
+def omp_max_threads() -> int:
+    """The library's OpenMP thread count (what nthreads=0 uses)."""
+    return int(get_lib().omp_get_max_threads())
+
+
+def _flat_tables(tables: ScoringTables):
+    pair_w = np.ascontiguousarray(tables.pair_w.reshape(-1))
+    diff = np.ascontiguousarray(tables.diff.reshape(-1))
+    sub = np.ascontiguousarray(tables.sub.reshape(-1))
+    return pair_w, diff, sub
+
+
+def search_native(codes1: np.ndarray, codes2: np.ndarray,
+                  tables: ScoringTables, nthreads: int = 0,
+                  first_offset: int = 0,
+                  last_offset: int | None = None) -> SearchResult:
+    """The whole search over offsets [first_offset, last_offset) with the
+    reference's sequential semantics, on `nthreads` OpenMP threads (0 = all
+    cores).  Releases the GIL while it runs."""
+    lib = get_lib()
+    codes1 = np.ascontiguousarray(codes1, np.int32)
+    codes2 = np.ascontiguousarray(codes2, np.int32)
+    noff = codes1.shape[0] - codes2.shape[0] + 1
+    if last_offset is None:
+        last_offset = noff
+    if not (0 <= first_offset and last_offset <= noff):
+        raise ValueError(f"offset range [{first_offset}, {last_offset}) "
+                         f"outside [0, {noff})")
+    pair_w, diff, sub = _flat_tables(tables)
+    score = ctypes.c_double()
+    off = ctypes.c_int32()
+    coff = ctypes.c_int32()
+    sc = ctypes.c_int32()
+    _count("search")
+    found = lib.psa_search(
+        codes1, codes1.shape[0], codes2, codes2.shape[0],
+        pair_w, diff, sub, int(tables.is_max), first_offset, last_offset,
+        nthreads,
+        ctypes.byref(score), ctypes.byref(off), ctypes.byref(coff),
+        ctypes.byref(sc),
+    )
+    if not found:
+        raise NoMutationFound("no offset admits a legal substitution")
+    return SearchResult(offset=off.value, char_offset=coff.value,
+                        sub_code=sc.value, score=score.value)
+
+
+def score_offset_native(codes1: np.ndarray, codes2: np.ndarray,
+                        tables: ScoringTables, offset: int):
+    """One offset re-scored sequentially; the contract of
+    core/oracle.score_offset_sequential."""
+    lib = get_lib()
+    codes1 = np.ascontiguousarray(codes1, np.int32)
+    codes2 = np.ascontiguousarray(codes2, np.int32)
+    if not 0 <= offset <= codes1.shape[0] - codes2.shape[0]:
+        raise ValueError(f"offset {offset} out of range")
+    pair_w, diff, sub = _flat_tables(tables)
+    total = ctypes.c_double()
+    coff = ctypes.c_int32()
+    sc = ctypes.c_int32()
+    _count("score_offset")
+    lib.psa_score_offset(codes1, codes2, codes2.shape[0], pair_w, diff, sub,
+                         int(tables.is_max), offset,
+                         ctypes.byref(total), ctypes.byref(coff), ctypes.byref(sc))
+    return total.value, coff.value, sc.value, None
+
+
+def rescore_batch_native(codes1: np.ndarray, codes2: np.ndarray,
+                         tables: ScoringTables, cand: np.ndarray):
+    """Candidate offsets re-scored sequentially; the contract of
+    core/oracle.rescore_candidates, bit for bit (f64 sums in the same
+    order).  Returns (totals f64, char_offsets i64, sub_codes i64)."""
+    lib = get_lib()
+    codes1 = np.ascontiguousarray(codes1, np.int32)
+    codes2 = np.ascontiguousarray(codes2, np.int32)
+    cand = np.ascontiguousarray(cand, np.int64)
+    if cand.size and not (0 <= cand.min()
+                          and cand.max() <= codes1.shape[0] - codes2.shape[0]):
+        raise ValueError("candidate offset out of range")
+    pair_w, diff, sub = _flat_tables(tables)
+    k = cand.shape[0]
+    totals = np.empty(k, np.float64)
+    coffs = np.empty(k, np.int32)
+    subs = np.empty(k, np.int32)
+    _count("rescore_batch")
+    lib.psa_rescore_batch(codes1, codes2, codes2.shape[0], pair_w, diff, sub,
+                          int(tables.is_max), cand, k, totals, coffs, subs)
+    return totals, coffs.astype(np.int64), subs.astype(np.int64)
+
+
+def rescore_multi_native(c1b: np.ndarray, c2b: np.ndarray, n2s: np.ndarray,
+                         tables: ScoringTables, qidx: np.ndarray,
+                         offsets: np.ndarray):
+    """Candidates of many queries re-scored in one call: candidate j is
+    offset offsets[j] of query qidx[j], whose codes are row qidx[j] of the
+    padded (B, L1) / (B, L2) matrices c1b / c2b.  The contract of
+    core/oracle.rescore_multi, bit for bit.  Returns (totals f64,
+    char_offsets i64, sub_codes i64)."""
+    lib = get_lib()
+    c1b = np.ascontiguousarray(c1b, np.int32)
+    c2b = np.ascontiguousarray(c2b, np.int32)
+    n2s = np.ascontiguousarray(n2s, np.int32)
+    qidx = np.ascontiguousarray(qidx, np.int32)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    if qidx.shape != offsets.shape:
+        raise ValueError("qidx and offsets differ in length")
+    if qidx.size:
+        n2q = n2s[qidx]
+        if not (0 <= qidx.min() and qidx.max() < c1b.shape[0]
+                and c1b.shape[0] == c2b.shape[0] == n2s.shape[0]
+                and n2q.max() <= c2b.shape[1] and offsets.min() >= 0
+                and (offsets + n2q).max() <= c1b.shape[1]):
+            raise ValueError("candidate out of its query's padded rows")
+    pair_w, diff, sub = _flat_tables(tables)
+    k = offsets.shape[0]
+    totals = np.empty(k, np.float64)
+    coffs = np.empty(k, np.int32)
+    subs = np.empty(k, np.int32)
+    _count("rescore_multi")
+    lib.psa_rescore_multi(c1b, c1b.shape[1], c2b, c2b.shape[1], n2s,
+                          pair_w, diff, sub, int(tables.is_max),
+                          qidx, offsets, k, totals, coffs, subs)
+    return totals, coffs.astype(np.int64), subs.astype(np.int64)
+
+
+def encode_padded_native(buf: bytes, offs: np.ndarray, lens: np.ndarray,
+                         length: int) -> np.ndarray:
+    """(n, length) PAD-padded uint8 code rows from the byte spans
+    buf[offs[i]: offs[i] + lens[i]] in one C pass
+    (core/alphabet.encode_batch_padded's fast path)."""
+    lib = get_lib()
+    n = offs.shape[0]
+    offs = np.ascontiguousarray(offs, np.int64)
+    lens = np.ascontiguousarray(lens, np.int32)
+    if n and not (lens.min() >= 0 and lens.max() <= length and offs.min() >= 0
+                  and (offs + lens).max() <= len(buf)):
+        raise ValueError("span outside the buffer or longer than the row")
+    out = np.empty((n, length), np.uint8)
+    _count("encode_padded")
+    # codes are below 128, so the int8 rows the library writes are the
+    # same bytes as the kernels' uint8 input
+    lib.psa_encode_padded(buf, offs, lens, n, out.view(np.int8).reshape(-1),
+                          length)
+    return out
+
+
+def offset_stats_native(codes1: np.ndarray, codes2: np.ndarray,
+                        tables: ScoringTables):
+    """Per-offset (counts (noff, 4) int32, maxrank (noff,) int32), the
+    contract of core/oracle.offset_stats_numpy."""
+    lib = get_lib()
+    codes1 = np.ascontiguousarray(codes1, np.int32)
+    codes2 = np.ascontiguousarray(codes2, np.int32)
+    noff = codes1.shape[0] - codes2.shape[0] + 1
+    if noff <= 0:
+        raise ValueError("seq2 longer than seq1")
+    sign = np.ascontiguousarray(tables.sign.reshape(-1))
+    rank = np.ascontiguousarray(tables.rank.reshape(-1))
+    counts = np.empty((noff, 4), np.int32)
+    maxrank = np.empty(noff, np.int32)
+    _count("offset_stats")
+    lib.psa_offset_stats(codes1, codes2, codes2.shape[0], sign, rank,
+                         0, noff, counts.reshape(-1), maxrank)
+    return counts, maxrank

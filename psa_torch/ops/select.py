@@ -13,8 +13,10 @@ The reference accumulates its per-offset f64 score *sequentially*
 two f64 roundings of the same exact sum differ by at most a bound
 proportional to n2*ulp (see `candidate_epsilon`).  Every offset within that
 bound of the grouped best is re-scored in the reference's sequential order
-(`rescore_candidates`, vectorized over candidates), so the final winner and
-the printed score are bit-identical to the reference.
+(the native library's `rescore_batch_native` when it builds, else the numpy
+`rescore_candidates`, vectorized over candidates; the two agree bit for
+bit), so the final winner and the printed score are bit-identical to the
+reference.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import sys
 
 import numpy as np
 
+from psa_torch import native
 from psa_torch.config import CONFIG
 from psa_torch.core.oracle import rescore_candidates
 from psa_torch.core.result import NoMutationFound, SearchResult
@@ -94,8 +97,12 @@ def pick_from_candidates(codes1: np.ndarray, codes2: np.ndarray,
     Re-scores every candidate with the reference's sequential f64 semantics
     (cpu_funcs.c:257-300); the first bit-equal best total is the is_swapable
     winner (cuda_funcs.cu:290-307: strictly better, else lowest offset).
+    The native re-scorer makes one call for the whole list; the numpy one
+    takes n2 vectorised steps (~20 us each of interpreter overhead).
     """
-    seq_totals, coffs, subs = rescore_candidates(codes1, codes2, tables, cand)
+    rescore = (native.rescore_batch_native if native.available()
+               else rescore_candidates)
+    seq_totals, coffs, subs = rescore(codes1, codes2, tables, cand)
     ok = coffs >= 0
     seq_totals = np.where(ok, seq_totals, -np.inf if tables.is_max else np.inf)
     if not ok.any():

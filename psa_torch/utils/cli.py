@@ -7,7 +7,10 @@ batch path, one output file each (`-o` names the directory).  Same output
 bytes and exit codes as the JAX package's `psa`: 0 found, 1 no mutation
 (the unmodified Seq2 is written with offset -1; in batch mode, any case
 without one), 2 bad usage or input.  Runs on the card unless `--device cpu`
-is given.
+or a host backend (`numpy`, `native`) is given.  The reference's runtime
+flag (argv[1] = cuda_percentage, main.c:30-42) is `--device-share PCT`: a
+split of each query's offsets between the device and the native host
+engine (cpu_funcs.c:144-150), with -100 = the sequential oracle mode.
 """
 
 from __future__ import annotations
@@ -33,12 +36,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default ./input.txt, like the reference def.h:20)")
     p.add_argument("-o", "--output", default=CONFIG.default_output,
                    help="output file (default ./output.txt)")
-    p.add_argument("--backend", default="torch", choices=["torch", "numpy"],
-                   help="compute path: torch = the CUDA sweep kernel and "
-                        "device epilogue; numpy = the host oracle")
+    p.add_argument("--backend", default=None,
+                   choices=["torch", "numpy", "native", "auto", "hybrid"],
+                   help="compute path (default torch): torch = the CUDA "
+                        "sweep kernel and device epilogue; numpy = the host "
+                        "oracle; native = the C++/OpenMP host engine; auto "
+                        "= native below the auto threshold of pair-evals, "
+                        "torch above it; hybrid = a concurrent device/host "
+                        "split of the offsets (see --device-share)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device of the torch backend (cpu runs the kernel's "
-                        "plain PyTorch version)")
+                   help="device of the torch path, also for auto and hybrid "
+                        "(cpu runs the kernel's plain PyTorch version)")
+    p.add_argument("--device-share", type=float, default=None, metavar="PCT",
+                   help="the reference's cuda_percentage (main.c:30-42): "
+                        "the device takes the FIRST PCT%% of offsets, the "
+                        "native host engine the rest in parallel "
+                        "(cpu_funcs.c:144-150); implies --backend hybrid. "
+                        "-100 = the sequential oracle mode (native, one "
+                        "thread)")
+    p.add_argument("--threads", type=int, default=0,
+                   help="native-engine thread count (1 = the reference's "
+                        "sequential `runseq` mode; 0 = all cores)")
     p.add_argument("--explain", action="store_true",
                    help="render the winning alignment with signs and the "
                         "mutation highlighted (reference pretty_print)")
@@ -66,8 +84,35 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _fold_device_share(args) -> str | None:
+    """Fold --device-share into --backend and --threads (the JAX package's
+    rules); returns an error message, or None."""
+    if args.device_share is not None:
+        if args.device_share == -100:
+            # main.c:33-37: -100 => sequential mode (1 thread, no device)
+            args.backend, args.threads, args.device_share = "native", 1, None
+        elif 0 <= args.device_share <= 100:
+            if args.backend not in (None, "auto", "hybrid"):
+                return f"--device-share conflicts with --backend {args.backend}"
+            if args.batch:
+                return ("--device-share applies to single-query searches only "
+                        "(the reference splits one query, cpu_funcs.c:144-150)")
+            args.backend = "hybrid"
+        else:
+            return "--device-share must be in [0, 100] or -100"
+    if args.backend is None:
+        args.backend = "torch"
+    if args.backend == "hybrid" and args.batch:
+        return "the hybrid backend applies to single-query searches only"
+    return None
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    err = _fold_device_share(args)
+    if err is not None:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
     if args.batch:
         return _main_batch(args)
 
@@ -101,8 +146,9 @@ def main(argv: list[str] | None = None) -> int:
         engine = AlignmentSearchEngine(
             query.weights, query.is_max, backend=args.backend,
             strict_alphabet=not args.lenient,
-            device=None if args.device == "cuda" else args.device)
-    except RuntimeError as e:
+            device=None if args.device == "cuda" else args.device,
+            nthreads=args.threads, device_share=args.device_share)
+    except (RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
@@ -187,14 +233,18 @@ def _main_batch(args) -> int:
     os.makedirs(outdir, exist_ok=True)
 
     device = None
-    if args.backend == "torch":
-        try:
+    try:
+        if args.backend in ("torch", "auto"):
             # "cuda" = the card, which raises when there is none
             device = resolve_device(None if args.device == "cuda"
                                     else args.device)
-        except RuntimeError as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2
+        if args.backend == "native":
+            from psa_torch import native
+
+            native.get_lib()
+    except (RuntimeError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
     t0 = time.perf_counter()
     try:

@@ -428,7 +428,7 @@ def mixed_queries():
     return qs
 
 
-@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("backend", ["torch", "numpy", "native", "auto"])
 def test_search_batch_matches_jax(backend):
     qs = mixed_queries()
     got = batch.search_batch([Query(np.asarray(w), a, b, m) for w, a, b, m in qs],

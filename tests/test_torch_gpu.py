@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE
-from psa_torch.core.tables import build_tables
+from psa_torch import native
+from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE, encode_batch_padded
+from psa_torch.core.oracle import rescore_multi
+from psa_torch.core.tables import build_tables, device_tables
 from psa_torch.models import batch
 from psa_torch.models.search import AlignmentSearchEngine
 from psa_torch.ops import _sweep_v2 as v2
@@ -164,6 +166,51 @@ def test_north_star_on_card(cuda):
     assert (res.offset, res.char_offset, res.sub_code, res.score) == (
         84944, 10, 10, -21596.0)
     assert sw.launches == before + 1
+
+
+@pytest.mark.parametrize("backend,share", [("native", None), ("auto", None),
+                                           ("hybrid", 50)])
+def test_north_star_through_host_backends(cuda, backend, share):
+    """The north-star tuple through the backends built on the native
+    library; `auto` takes the card at this size, and so does `hybrid`'s
+    device half."""
+    s1, s2 = random_sequences(100_000, 10_000, seed=0)
+    before = sw.launches
+    res = AlignmentSearchEngine((1, 3, 4, 2), False, backend=backend,
+                                device_share=share).search(s1, s2)
+    assert (res.offset, res.char_offset, res.sub_code, res.score) == (
+        84944, 10, 10, -21596.0)
+    assert sw.launches - before == (0 if backend == "native" else 1)
+
+
+def test_rescore_multi_native_on_a_fetched_microbatch(cuda):
+    """The candidates of one microbatch fetched from the card, re-scored by
+    the library and by numpy: the same bits."""
+    assert native.available()
+    qs = [Query(np.array([1.0, 3.0, 4.0, 2.0]), *random_sequences(2048, 512, seed=s),
+                False) for s in range(64)]
+    tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
+    dtabs = device_tables(tables, cuda)
+    noffs = np.array([len(q.seq1) - len(q.seq2) + 1 for q in qs], np.int32)
+    n2s = np.array([len(q.seq2) for q in qs], np.int32)
+    l2p = sw.plan_shapes(2048, 512)[2]
+    _, l1k = sw.plan_bucket(noffs, l2p)
+    c1b = encode_batch_padded([q.seq1 for q in qs], l1k)
+    c2b = encode_batch_padded([q.seq2 for q in qs], l2p)
+    packed = batch.run_exact_batch(torch.from_numpy(c1b).to(cuda),
+                                   torch.from_numpy(c2b).to(cuda),
+                                   torch.from_numpy(noffs).to(cuda), dtabs)
+    topi, stats_k, near, best = batch.unpack_epilogue_outputs(
+        batch.start_fetch(packed).wait(), batch.TOPK)
+    assert (near <= batch.TOPK).all()
+    qidx = np.repeat(np.arange(len(qs), dtype=np.int32), batch.TOPK)
+    offs = topi.reshape(-1).astype(np.int64)
+    keep = offs < noffs[qidx]
+    qidx, offs = qidx[keep], offs[keep]
+    got = native.rescore_multi_native(c1b, c2b, n2s, tables, qidx, offs)
+    want = rescore_multi(c1b, c2b, n2s, tables, qidx, offs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def batch_rows(rng, b, n1, n2, other, ragged):

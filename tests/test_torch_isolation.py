@@ -24,7 +24,8 @@ def test_import_leaves_no_jax_or_psa_tpu():
     code = ("import sys, psa_torch, psa_torch.utils.cli, psa_torch.models.batch, "
             "psa_torch.utils.pretty, psa_torch.utils.generator, psa_torch.config, "
             "psa_torch.ops._sweep_v2, psa_torch.ops._sweep_v3, "
-            "psa_torch.utils.kernel_lab; "
+            "psa_torch.utils.kernel_lab, psa_torch.native; "
+            "assert psa_torch.native.available(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'psa_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -39,7 +40,7 @@ def test_static_scan_finds_no_jax_or_psa_tpu_import():
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
     for f in ("models/batch.py", "ops/_sweep_v2.py", "ops/_sweep_v3.py",
-              "utils/kernel_lab.py"):
+              "utils/kernel_lab.py", "native/__init__.py"):
         assert ROOT / "psa_torch" / f in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
@@ -58,6 +59,32 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "o.txt").exists()
     # the host oracle needs no card
     search_mod.AlignmentSearchEngine((1, 3, 4, 2), False, backend="numpy")
+
+
+def test_native_source_is_the_jax_package_copy():
+    """The port builds its own copy of the C++ host engine, byte for byte
+    the JAX package's."""
+    port = ROOT / "psa_torch" / "native" / "psa_native.cpp"
+    assert port.read_bytes() == (ROOT / "psa_tpu" / "native" / "psa_native.cpp").read_bytes()
+    from psa_torch import native
+
+    assert Path(native._SRC) == port
+
+
+@pytest.mark.parametrize("backend", ["auto", "hybrid"])
+def test_device_backends_without_cuda_raise(monkeypatch, backend):
+    """`auto` and `hybrid` run their device half on the card: without one
+    they raise, whatever the query's size, unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search_mod.AlignmentSearchEngine((1, 3, 4, 2), False, backend=backend)
+    eng = search_mod.AlignmentSearchEngine((1, 3, 4, 2), False, backend=backend,
+                                           device="cpu")
+    assert eng.device == torch.device("cpu")
+    assert eng.search("ABCDEFGHIJ", "CDE").offset >= 0
+    # the host engines need no card
+    assert search_mod.AlignmentSearchEngine((1, 3, 4, 2), False,
+                                            backend="native").device is None
 
 
 def test_cpu_tensors_take_the_plain_version_without_a_launch():

@@ -5,7 +5,9 @@
 
 Builds the sweep kernels from psa_torch/csrc and holds each against its
 plain PyTorch version on the card (`sweep` also at the edges of its even
-split, with the card's split beside `sweep_plan`'s).  Drives the port's
+split, with the card's split beside `sweep_plan`'s; the lab's v3 at the
+edges of its Seq2 segments, with the card's split beside
+`v3_launch_plan`'s and v2 on the same inputs).  Drives the port's
 paths, each with the kernels' launch counts zeroed just before it and read
 just after:
 - the single-query path (the engine and the `psa_torch.utils.cli` CLI) at
@@ -92,19 +94,15 @@ SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
 # and half a VIMNMX3: it accumulates and maxes two positions per
 # instruction).  At these rates the table reads bound the route.
 INT_OPS_PER_PAIR = 2
-# The tensor-core route of the lab's sweeps (csrc/sweep_mma.cu): per pair, a
-# 32-deep int8 product (64 ops) at the dense int8 peak, one band byte written
-# to and read from shared memory (128 bytes per SM per clock), and the
-# decode's INT32 ops (DECODE_OPS_PER_WORD of ops/_sweep_v2.py and
-# ops/_sweep_v3.py, per 4 pairs).
+# The tensor-core route of the lab's sweeps (csrc/sweep_mma.cu and
+# csrc/sweep_mma_v3.cu): per pair, a 32-deep int8 product (64 ops) at the
+# dense int8 peak, one band byte written to and read from shared memory
+# (128 bytes per SM per clock), and the decode's INT32 ops
+# (DECODE_OPS_PER_WORD of ops/_sweep_v2.py and ops/_sweep_v3.py, per 4
+# pairs).
 INT8_TC_OPS_PER_S = 1979e12
 TC_OPS_PER_PAIR = 64
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
-# An SM dispatches one warp instruction per clock from each of its four
-# schedulers: the time to dispatch a kernel's main-loop instructions (its
-# SASS mix per pair) is a floor of that kernel as compiled, not of the
-# function.
-WARP_DISPATCH_PER_S = 132 * 4 * 1.98e9
 # A kernel is timed two ways (see kernel_times): one launch per pair of
 # CUDA events, the `ms` of the kernels line, and this many launches per
 # pair, `ms_back_to_back`; the plain versions, which take 10-1000 ms, are
@@ -160,38 +158,11 @@ def lab_bound(mod, noff: int, n2: int, l1k: int, l2p: int, noff_pad: int):
             terms)
 
 
-def dispatch_ms(sass: dict, kernel: str, pairs: float):
-    """ms to dispatch `kernel`'s main-loop instructions for `pairs` pairs at
-    WARP_DISPATCH_PER_S; None where the loop's pairs are not known."""
-    per_pair = sass.get(kernel, {}).get("per_pair")
-    return pairs * per_pair / 32 / WARP_DISPATCH_PER_S * 1e3 if per_pair else None
-
-
-def cuda_ms(torch, fn, runs: int, warm: int = 2, back_to_back: int = 1):
-    """(median, p25, p75) device ms per call of fn() over `runs` runs, CUDA
-    events around each run of `back_to_back` calls.  With one call the
-    time includes the host's enqueue of the launch (the stream is idle when
-    the first event passes); more calls keep the stream fed and leave it
-    out."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(back_to_back):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / back_to_back)
-    q1, _, q3 = statistics.quantiles(times, n=4)
-    return statistics.median(times), q1, q3
-
-
 def kernel_times(torch, fn, runs: int):
     """`cuda_ms` of a kernel call at one launch per pair of events and at
     KERNEL_BACK_TO_BACK launches per pair: ((median, p25, p75), (...))."""
+    from psa_torch.utils.kernel_lab import cuda_ms
+
     return (cuda_ms(torch, fn, runs),
             cuda_ms(torch, fn, runs, back_to_back=KERNEL_BACK_TO_BACK))
 
@@ -448,32 +419,85 @@ def sweep_checks(torch, sw, code, dev):
     return max_abs
 
 
+def v3_edges(v3):
+    """The edges of v3's split (csrc/sweep_mma_v3.cu): (case, n1, n2, letter
+    pair or None for random codes, code at that pair or None).  l2p =
+    MAX_N2 over 128 tiles makes segments of LANE_CHUNKS chunks, so every
+    byte lane fills: every pair in class 2 (both slot bits), then every
+    pair at the largest code the contract allows (126); one tile of one
+    chunk; a chunk count the segments do not divide; one segment per
+    tile."""
+    n1_full = v3.MAX_N2 + 128 * 256 - 1
+    return [("max_n2_one_class", n1_full, v3.MAX_N2, (0, 2), None),
+            ("max_n2_max_code", n1_full, v3.MAX_N2, (0, 2), 126),
+            ("one_tile_one_chunk", 300, 64, None, None),
+            ("segments_uneven", 1_000_000, 2000, None, None),
+            ("one_segment_per_tile", 1_000_000, 500, None, None)]
+
+
+def v3_plan(v3, noff_pad: int, l2p: int):
+    """v3's split on the card, checked against `v3_launch_plan` with the
+    card's slots."""
+    card = v3.v3_card_plan(noff_pad, l2p)
+    model = v3.v3_launch_plan(noff_pad, l2p, card["slots"])
+    keys = ("tiles", "chunks", "segs", "blocks", "most_chunks")
+    if any(card[k] != model[k] for k in keys):
+        raise AssertionError(f"the card's v3 split {card} is not v3_launch_plan's "
+                             f"{ {k: model[k] for k in keys} }")
+    return card
+
+
 def lab_kernel_checks(torch, sw, v2, v3, code, dev):
     """The lab's tensor-core sweeps against their plain versions on the
     card, all 8 rows (tolerance 0: every statistic is an exact integer); v3
-    on clean inputs only.  Returns {kernel: max_abs_diff} or raises."""
+    on clean inputs only, each case with v3's split; then v3's edges
+    (`v3_edges`) with v2 on the same inputs as the control.  Returns
+    {kernel: max_abs_diff} or raises."""
     rng = np.random.default_rng(303)
     worst = {"sweep_v2": 0, "sweep_v3": 0}
-    for case, n1, n2, hp, op in (("ragged", 1000, 137, 0.05, 0.0),
-                                 ("bench", LAB["n1"], LAB["n2"], 0.0, 0.0),
-                                 ("north_star", 100_000, 10_000, 0.0, 0.0),
-                                 ("long_seq1", 400_000, 2048, 0.0, 0.0),
-                                 ("lenient", 50_000, 3000, 0.05, 0.05)):
+    cases = [(case, n1, n2, hp, op, None, None)
+             for case, n1, n2, hp, op in (("ragged", 1000, 137, 0.05, 0.0),
+                                          ("bench", LAB["n1"], LAB["n2"], 0.0, 0.0),
+                                          ("north_star", 100_000, 10_000, 0.0, 0.0),
+                                          ("long_seq1", 400_000, 2048, 0.0, 0.0),
+                                          ("lenient", 50_000, 3000, 0.05, 0.05))]
+    cases += [(case, n1, n2, 0.0, 0.0, pair, top)
+              for case, n1, n2, pair, top in v3_edges(v3)]
+    table = code.cpu().numpy()
+    for case, n1, n2, hp, op, pair, top in cases:
         noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
-        d1 = sw.upload_codes(random_codes(rng, n1, hp, op), l1k, dev)
-        d2 = sw.upload_codes(random_codes(rng, n2, hp, op), l2p, dev)
+        plan = v3_plan(v3, noff_pad, l2p)
+        want = {"max_n2_one_class": plan["most_chunks"] == v3.LANE_CHUNKS,
+                "max_n2_max_code": plan["most_chunks"] == v3.LANE_CHUNKS,
+                "one_tile_one_chunk": (noff_pad, l2p, plan["segs"]) == (256, 64, 1),
+                "segments_uneven": plan["chunks"] % plan["segs"] != 0,
+                "one_segment_per_tile": plan["segs"] == 1 < plan["chunks"]}.get(case, True)
+        if not want:
+            raise AssertionError(f"v3's split at {case} is not the edge it tests: {plan}")
+        case_code = code
+        if pair is None:
+            c1, c2 = random_codes(rng, n1, hp, op), random_codes(rng, n2, hp, op)
+        else:
+            c1, c2 = np.full(n1, pair[0]), np.full(n2, pair[1])
+            if top is not None:
+                t = table.copy()
+                t[pair] = top
+                case_code = torch.from_numpy(t).to(dev)
+        d1 = sw.upload_codes(c1, l1k, dev)
+        d2 = sw.upload_codes(c2, l2p, dev)
         kernels = [("sweep_v2", v2.sweep_v2, v2.sweep_v2_plain)]
         if op == 0.0:
             kernels.append(("sweep_v3", v3.sweep_v3, v3.sweep_v3_plain))
         for kernel, fn, plain in kernels:
-            got = fn(d1, d2, code)
+            got = fn(d1, d2, case_code)
             torch.cuda.synchronize()
-            diff = int((got.long() - plain(d1, d2, code).long()).abs().max().item())
+            diff = int((got.long() - plain(d1, d2, case_code).long()).abs().max().item())
             worst[kernel] = max(worst[kernel], diff)
             emit({"phase": "lab_kernel_vs_plain", "kernel": kernel, "case": case,
                   "n1": n1, "n2": n2, "noff_pad": noff_pad, "l2p": l2p,
                   "max_abs_diff": diff, "tolerance": 0,
-                  "rows4_sum": int(got[:4, :noff].sum().item())})
+                  "rows4_sum": int(got[:4, :noff].sum().item()),
+                  "max_code": int(got[4, :noff].max().item()), "v3_plan": plan})
             if diff != 0:
                 raise AssertionError(f"{kernel} disagrees with its plain version "
                                      f"at {case}")
@@ -646,6 +670,7 @@ def main() -> int:
     from psa_torch.ops import sweep as sw
     from psa_torch.utils import generator, kernel_lab
     from psa_torch.utils.generator import random_sequences, write_input_file
+    from psa_torch.utils.kernel_lab import cuda_ms, dispatch_ms
     from psa_torch.utils.io import Query, format_output
 
     if not Path(sw.__file__).resolve().is_relative_to(ROOT):
@@ -1153,9 +1178,9 @@ def main() -> int:
         d2 = sw.upload_codes(random_codes(rng, n2), l2p, dev)
         for kernel, mod, fn, plain, compiled in (
                 ("sweep_v2", v2, v2.sweep_v2, v2.sweep_v2_plain,
-                 "sweep_mma_kernel<false>"),
+                 "sweep_mma_kernel"),
                 ("sweep_v3", v3, v3.sweep_v3, v3.sweep_v3_plain,
-                 "sweep_mma_kernel<true>")):
+                 "sweep_v3_kernel")):
             (k_ms, k_q1, k_q3), (k_bb, bb_q1, bb_q3) = kernel_times(
                 torch, lambda: fn(d1, d2, code), runs=20)
             p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: plain(d1, d2, code),
@@ -1170,6 +1195,7 @@ def main() -> int:
                   "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_terms_ms": terms,
                   "dispatch_ms": dispatch_ms(sass, compiled, float(noff) * n2),
+                  "v3_plan": v3_plan(v3, noff_pad, l2p),
                   "v1_ms_this_run": timings[name]["ms"], "runs": 20,
                   "back_to_back": KERNEL_BACK_TO_BACK, "plain_runs": 5})
 
@@ -1197,13 +1223,15 @@ def main() -> int:
          "max_abs_err": batched_abs["sweep_batched_shared"],
          "max_abs_diff": batched_abs["sweep_batched_shared"], "shape": shape_b,
          **ktimes["sweep_batched_shared"], "library_ms": None},
-        *({"name": kernel, "route": "cuda", "source": "psa_torch/csrc/sweep_mma.cu",
+        *({"name": kernel, "route": "cuda", "source": source,
            "replaces": replaces, "launches": lab_launches[kernel],
            "max_abs_err": lab_abs[kernel], "max_abs_diff": lab_abs[kernel],
            "shape": f"{LAB['n1']}x{LAB['n2']}", **lab_times[kernel, "bench"],
            "library_ms": None}
-          for kernel, replaces in (("sweep_v2", "psa_tpu/ops/_sweep_v2.py:86"),
-                                   ("sweep_v3", "psa_tpu/ops/_sweep_v3.py:101")))]})
+          for kernel, source, replaces in (
+              ("sweep_v2", "psa_torch/csrc/sweep_mma.cu", "psa_tpu/ops/_sweep_v2.py:86"),
+              ("sweep_v3", "psa_torch/csrc/sweep_mma_v3.cu",
+               "psa_tpu/ops/_sweep_v3.py:101")))]})
     # 7. last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,27 +1,24 @@
-// The kernel lab's offset sweeps on Hopper (sm_90a): the one-hot contraction
-// on the int8 tensor cores, a shear through shared memory and a byte-packed
-// (SWAR) decode.
+// The kernel lab's v2 offset sweep on Hopper (sm_90a): the one-hot
+// contraction on the int8 tensor cores, a shear through shared memory and a
+// byte-packed (SWAR) decode.
 //
-// Replaces two TPU kernels, both launched only by benchmarks/kernel_lab.py:
-//   * sweep_mma_kernel<false> replaces psa_tpu/ops/_sweep_v2.py::
-//     _sweep_kernel_v2 (launched by _sweep_pallas_v2): class counts folded
-//     every chunk, class 3 = nonzero bytes - the rest, so lenient inputs
-//     (OTHER_CODE, whose pairs are inert) are exact;
-//   * sweep_mma_kernel<true> replaces psa_tpu/ops/_sweep_v3.py::
-//     _sweep_kernel_v3 (launched by _sweep_pallas_v3): clean inputs only,
-//     deferred counting, no valid count and row 3 left zero (the caller
-//     rebuilds class 3 as n2 - the rest).
+// sweep_mma_kernel replaces psa_tpu/ops/_sweep_v2.py::_sweep_kernel_v2
+// (launched by _sweep_pallas_v2, which only benchmarks/kernel_lab.py
+// runs): class counts folded every chunk, class 3 = nonzero bytes - the
+// rest, so lenient inputs (OTHER_CODE, whose pairs are inert) are exact.
+// v3, the clean-input variant with deferred counts, is its own kernel in
+// sweep_mma_v3.cu; the geometry, the table and the mma are in
+// sweep_mma.cuh.
 //
-// Contract (the TPU kernels' layout):
+// Contract (the TPU kernel's layout):
 //   in   c1   (l1k,) uint8 Seq1 codes, l1k = noff_pad + l2p, PAD_CODE (28)
 //             past the sequence
 //        c2   (l2p,) uint8 Seq2 codes, PAD_CODE past the sequence
 //        code (32, 32) int8 fused table, code[c1][c2]: 0 = inert, else
 //             1 + cls + 4 * (rank + 1), at most 126
 //   out  (8, noff_pad) int32.  For offset o, over i < l2p with
-//        v = code[c1[o + i]][c2[i]]: rows 0-2 count the i with v > 0 and
-//        (v - 1) & 3 == k, row 3 likewise for k = 3 (v2) or 0 (v3), row 4 is
-//        max(v) (0 if none), rows 5-7 are 0.
+//        v = code[c1[o + i]][c2[i]]: rows 0-3 count the i with v > 0 and
+//        (v - 1) & 3 == k, row 4 is max(v) (0 if none), rows 5-7 are 0.
 //
 // The route.  A block owns kTile offsets and walks Seq2 in chunks of kChunk
 // positions.  For each chunk the fused code of every (position j, Seq1
@@ -40,58 +37,30 @@
 //
 // What bounds it on this card: not the tensor cores (64 int8 ops per pair at
 // 1,979 TOPS) and not HBM (each code byte serves a whole tile), but
-// instructions on the CUDA cores: the decode's INT32 operations (3 per pair
-// for v2, 2 for v3: the route's bound) and, in this version, as many again
-// to build the band (each B fragment from a Seq1 byte, each product's four
-// byte stores and their addresses), plus the band's trip through shared
-// memory (one byte written and read per pair).  The design keeps the decode
-// to a handful of operations per 4-pair word and folds the byte-wise
-// counters with dp4a: v2 every chunk, v3 every kDeferChunks chunks (the byte
-// lanes stay below 256), which is v3's point.  The shear's byte stores, the
-// B fragments built again by each of the four warps that share a column
-// tile, the two barriers per chunk and __vmaxu4 (emulated on Hopper) are the
-// known costs this first version leaves in.
+// instructions on the CUDA cores: the decode's INT32 operations (3 per pair:
+// the route's bound) and, in this version, as many again to build the band
+// (each B fragment from a Seq1 byte, each product's four byte stores and
+// their addresses), plus the band's trip through shared memory (one byte
+// written and read per pair).  The design keeps the decode to a handful of
+// operations per 4-pair word and folds the byte-wise counters with dp4a
+// every chunk.  The shear's byte stores, the B fragments built again by each
+// of the four warps that share a column tile, the two barriers per chunk,
+// __vmaxu4 (emulated on Hopper) and a grid of one block per tile (under one
+// wave at the lab's shapes) are the known costs this version leaves in.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sweep_mma.cuh"
 
 namespace {
 
-constexpr int kTile = 256;                        // offsets per block
-constexpr int kThreads = 256;                     // one offset per thread in the decode
-constexpr int kChunk = 64;                        // Seq2 positions per band
-constexpr int kWarps = kThreads / 32;
-constexpr int kMTiles = kChunk / 16;              // mma rows: 16 positions each
-constexpr int kNTiles = kTile / 8 + 2;            // mma columns: 8 Seq1 codes each
+using namespace psa_mma;
+
 constexpr int kNGroups = kWarps / kMTiles;
 constexpr int kNPerWarp = kNTiles / kNGroups;
-constexpr int kRowPad = 16;                       // band rows for offsets -16 .. -1
-constexpr int kBandRows = kTile + 2 * kRowPad;    // offsets -16 .. kTile + 15
-constexpr int kRowWords = kChunk / 4 + 1;         // odd stride: the decode's reads
-constexpr int kRowBytes = 4 * kRowWords;          // hit 32 distinct banks
-constexpr int kDeferChunks = 255 / (kChunk / 4);  // a byte lane gains <= kChunk/4 a chunk
-constexpr uint32_t kB1 = 0x01010101u;
 constexpr uint32_t kL7 = 0x7F7F7F7Fu;
 constexpr uint32_t kH = 0x80808080u;
 
-static_assert(kThreads == kTile, "the decode gives each thread one offset");
 static_assert(kWarps % kMTiles == 0 && kNTiles % kNGroups == 0, "warp split");
 
-// D = A B + 0 on the int8 tensor cores.  Fragments (PTX ISA, mma.m16n8k32
-// with .s8): lane = 4 g + t; a[0] = A[g][4t .. 4t+3], a[1] = A[g+8][4t ..],
-// a[2] = A[g][16+4t ..], a[3] = A[g+8][16+4t ..]; b0 = B[4t .. 4t+3][g],
-// b1 = B[16+4t .. 16+4t+3][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t],
-// D[g+8][2t+1].  The lowest byte of a register holds the lowest index.
-__device__ __forceinline__ void mma_s8(const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1, int (&d)[4]) {
-  const int z = 0;
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(z));
-}
-
-template <bool kV3>
 __global__ void __launch_bounds__(kThreads)
 sweep_mma_kernel(const uint8_t* __restrict__ c1,
                  const uint8_t* __restrict__ c2, int l2p,
@@ -107,16 +76,7 @@ sweep_mma_kernel(const uint8_t* __restrict__ c1,
   const int t = tid & 3;
   const long o0 = static_cast<long>(blockIdx.x) * kTile;
 
-  for (int e = tid; e < 32 * 8; e += kThreads) {
-    const int b = e >> 3;                         // Seq2 code
-    const int q = e & 7;                          // Seq1 codes 4q .. 4q+3
-    uint32_t w = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      w |= static_cast<uint32_t>(static_cast<uint8_t>(code[(4 * q + k) * 32 + b])) << (8 * k);
-    }
-    tab[e] = w;
-  }
+  load_table(code, tab);
   __syncthreads();
 
   // This warp's band: rows j0 .. j0+15 of the chunk, columns from n-tile nt0.
@@ -127,7 +87,6 @@ sweep_mma_kernel(const uint8_t* __restrict__ c1,
   uint32_t mx = 0;                                // byte-wise max of v
   uint32_t n13 = 0, n23 = 0, n3 = 0, nv = 0;      // slot bit 0, bit 1, both; nonzero
   uint32_t m13 = 0, m23 = 0, m3 = 0, mv = 0;      // the same, one count per byte lane
-  int pending = 0;                                // chunks in the byte lanes (v3)
 
   for (int p0 = 0; p0 < l2p; p0 += kChunk) {
     const uint32_t sa = c2[p0 + j0 + g] & 31;
@@ -138,10 +97,8 @@ sweep_mma_kernel(const uint8_t* __restrict__ c1,
 #pragma unroll
     for (int n = 0; n < kNPerWarp; ++n) {
       const int w0 = j0 + 8 * (nt0 + n);          // the n-tile's first column
-      const uint32_t s = __ldg(s1 + w0 + g) & 31; // its column g's Seq1 code
-      const uint32_t bit = 1u << (8 * (s & 3));
-      const uint32_t b0 = (s >> 2) == static_cast<uint32_t>(t) ? bit : 0u;
-      const uint32_t b1 = (s >> 2) == static_cast<uint32_t>(t + 4) ? bit : 0u;
+      uint32_t b0, b1;
+      one_hot_b(__ldg(s1 + w0 + g) & 31, t, b0, b1);  // its column g's Seq1 code
       int d[4];
       mma_s8(a, b0, b1, d);
       // the shear: D[j][w] -> band row (w - j) + kRowPad, byte j
@@ -162,22 +119,14 @@ sweep_mma_kernel(const uint8_t* __restrict__ c1,
       m13 += lo;
       m23 += hi;
       m3 += lo & hi;
-      if (!kV3) mv += ((p + kL7) & kH) >> 7;      // bytes <= 126: no carry
+      mv += ((p + kL7) & kH) >> 7;                // bytes <= 126: no carry
     }
-    if (!kV3 || ++pending == kDeferChunks) {
-      n13 = __dp4a(m13, kB1, n13);
-      n23 = __dp4a(m23, kB1, n23);
-      n3 = __dp4a(m3, kB1, n3);
-      if (!kV3) nv = __dp4a(mv, kB1, nv);
-      m13 = m23 = m3 = mv = 0;
-      pending = 0;
-    }
-    __syncthreads();                              // the band is read before it is rewritten
-  }
-  if (kV3) {
     n13 = __dp4a(m13, kB1, n13);
     n23 = __dp4a(m23, kB1, n23);
     n3 = __dp4a(m3, kB1, n3);
+    nv = __dp4a(mv, kB1, nv);
+    m13 = m23 = m3 = mv = 0;
+    __syncthreads();                              // the band is read before it is rewritten
   }
 
   const int cls0 = static_cast<int>(n13 - n3);
@@ -190,21 +139,20 @@ sweep_mma_kernel(const uint8_t* __restrict__ c1,
   o[0] = cls0;
   o[stride] = cls1;
   o[2 * stride] = cls2;
-  o[3 * stride] = kV3 ? 0 : static_cast<int>(nv) - cls0 - cls1 - cls2;
+  o[3 * stride] = static_cast<int>(nv) - cls0 - cls1 - cls2;
   o[4 * stride] = vmax;
   o[5 * stride] = 0;
   o[6 * stride] = 0;
   o[7 * stride] = 0;
 }
 
-template <bool kV3>
 int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
            void* out, int noff_pad, void* stream) {
   if (noff_pad <= 0 || noff_pad % kTile != 0 || l2p <= 0 || l2p % kChunk != 0 ||
       l1k != noff_pad + l2p) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  sweep_mma_kernel<kV3><<<noff_pad / kTile, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sweep_mma_kernel<<<noff_pad / kTile, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(c1), static_cast<const uint8_t*>(c2), l2p,
       static_cast<const int8_t*>(code), static_cast<int32_t*>(out), noff_pad);
   return static_cast<int>(cudaGetLastError());
@@ -222,13 +170,7 @@ int psa_sweep_mma_chunk() { return kChunk; }
 // cudaGetLastError().  noff_pad a multiple of kTile, l2p of kChunk.
 int psa_sweep_v2_launch(const void* c1, int l1k, const void* c2, int l2p,
                         const void* code, void* out, int noff_pad, void* stream) {
-  return launch<false>(c1, l1k, c2, l2p, code, out, noff_pad, stream);
-}
-
-// v3: the same with row 3 zero (clean inputs; the caller rebuilds class 3).
-int psa_sweep_v3_launch(const void* c1, int l1k, const void* c2, int l2p,
-                        const void* code, void* out, int noff_pad, void* stream) {
-  return launch<true>(c1, l1k, c2, l2p, code, out, noff_pad, stream);
+  return launch(c1, l1k, c2, l2p, code, out, noff_pad, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,7 @@ nonzero bytes less the rest, so lenient inputs are exact.  The route is the
 TPU lab kernel's: the fused code of every pair comes from a one-hot int8
 contraction (here `mma.sync.m16n8k32.s8`), the band is sheared to offsets and
 decoded 4 pairs to a 32-bit word, and the counts are folded once per chunk
-(csrc/sweep_mma.cu, `sweep_mma_kernel<false>`).
+(csrc/sweep_mma.cu, `sweep_mma_kernel`).
 
 `sweep_v2` launches that kernel for CUDA tensors and runs `sweep_v2_plain`
 for CPU tensors.  Since v2 computes v1's function, the plain version is

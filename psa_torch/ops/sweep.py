@@ -20,9 +20,9 @@ of the JAX package's engine_xla, in torch — for CPU tensors.
 and return stats5 (B, 5, noff_pad) (csrc/sweep_batched.cu; plain versions
 `sweep_batched_plain` and `sweep_batched_shared_plain`).  Both kernels'
 offsets pad to whole warp tiles of TILE_O (`plan_shapes`, `plan_bucket`).
-The kernel lab's tensor-core sweeps (csrc/sweep_mma.cu) have their wrappers
-in ops/_sweep_v2.py and ops/_sweep_v3.py and are built into the same
-library.  A failed build or launch raises; nothing falls back to the plain
+The kernel lab's tensor-core sweeps (csrc/sweep_mma.cu, csrc/sweep_mma_v3.cu)
+have their wrappers in ops/_sweep_v2.py and ops/_sweep_v3.py and are built
+into the same library.  A failed build or launch raises; nothing falls back to the plain
 version.
 """
 
@@ -46,8 +46,8 @@ TILE_O = 256     # offsets per warp tile (csrc/sweep_core.cuh kGranule)
 L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
 SEG = 1024       # Seq2 positions per step of a worker (csrc/sweep_core.cuh kSegB)
 BUCKET_O = 1024  # offset granularity of search_batch's bucket keys
-MMA_TILE = 256   # offsets per block of the lab's sweeps (csrc/sweep_mma.cu kTile)
-MMA_CHUNK = 64   # Seq2 positions per band (csrc/sweep_mma.cu kChunk)
+MMA_TILE = 256   # offsets per block of the lab's sweeps (csrc/sweep_mma.cuh kTile)
+MMA_CHUNK = 64   # Seq2 positions per band (csrc/sweep_mma.cuh kChunk)
 
 # Kernel launches made by each wrapper: plain integers a caller can zero and
 # read to show that a path went through the kernel.
@@ -170,11 +170,13 @@ def build_library() -> ctypes.CDLL:
     lib.psa_sweep_batched_plan.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_longlong)]
-    lib.psa_sweep_plan.argtypes = [ctypes.c_int, ctypes.c_int,
-                                   ctypes.POINTER(ctypes.c_longlong)]
+    for fn in (lib.psa_sweep_plan, lib.psa_sweep_v3_plan):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_longlong)]
     for fn in (lib.psa_sweep_tile, lib.psa_sweep_align, lib.psa_sweep_seg,
                lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk,
-               lib.psa_sweep_batched_plan, lib.psa_sweep_plan):
+               lib.psa_sweep_batched_plan, lib.psa_sweep_plan,
+               lib.psa_sweep_v3_plan):
         fn.restype = ctypes.c_int
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p

@@ -22,6 +22,9 @@ nor have its Mosaic layout choices `--shear` and `--pack`, `--counts` or
 `sass_loop_mix(sass_of(library))` reads the static instruction mix of each
 kernel's main loop from the built library (chip_smoke.py prints it), the
 per-pair instruction count that the variants' times follow.
+`cuda_ms` (CUDA events around one launch or several back to back) and
+`dispatch_ms` (that mix's floor) are the timer and the floor that
+chip_smoke.py and `utils/lab_ab` report with.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import argparse
 import collections
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -71,13 +75,50 @@ def oracle(n1: int, n2: int):
 
 # Pairs one thread handles in an iteration of a kernel's main loop:
 # csrc/sweep_core.cuh's sweep_step, in sweep.cu and sweep_batched.cu (kFlush
-# positions x kOffsetsPerThread offsets), and csrc/sweep_mma.cu (kChunk
-# positions of one offset).
+# positions x kOffsetsPerThread offsets), and the lab's v2 and v3
+# (csrc/sweep_mma.cu, csrc/sweep_mma_v3.cu: kChunk positions of one offset).
 LOOP_PAIRS = {"sweep_kernel": 32 * 8, "sweep_batched_kernel": 32 * 8,
-              "sweep_mma_kernel": 64}
+              "sweep_mma_kernel": 64, "sweep_v3_kernel": 64}
 # Kernels whose main loop sits inside a persistent loop over work items:
 # their main loop is the widest of the loops that hold no other loop.
 INNERMOST = {"sweep_kernel", "sweep_batched_kernel"}
+
+
+# An SM dispatches one warp instruction per clock from each of its four
+# schedulers (H100 SXM: 132 SMs at 1.98 GHz): the time to dispatch a
+# kernel's main-loop instructions (its SASS mix per pair) is a floor of that
+# kernel as compiled, not of the function.
+WARP_DISPATCH_PER_S = 132 * 4 * 1.98e9
+
+
+def dispatch_ms(sass: dict, kernel: str, pairs: float):
+    """ms to dispatch `kernel`'s main-loop instructions (`sass_loop_mix`)
+    for `pairs` pairs at WARP_DISPATCH_PER_S; None where the loop's pairs
+    are not known."""
+    per_pair = sass.get(kernel, {}).get("per_pair")
+    return pairs * per_pair / 32 / WARP_DISPATCH_PER_S * 1e3 if per_pair else None
+
+
+def cuda_ms(torch, fn, runs: int, warm: int = 2, back_to_back: int = 1):
+    """(median, p25, p75) device ms per call of fn() over `runs` runs, CUDA
+    events around each run of `back_to_back` calls.  With one call the
+    time includes the host's enqueue of the launch (the stream is idle when
+    the first event passes); more calls keep the stream fed and leave it
+    out."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(back_to_back):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / back_to_back)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return statistics.median(times), q1, q3
 
 
 def sass_of(library: str) -> str:
@@ -88,8 +129,9 @@ def sass_of(library: str) -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`sweep_mma_kernel<true>` from its mangled name (the last name of the
-    nested name, with a bool template argument)."""
+    """`sweep_v3_kernel` or `sweep_batched_kernel<true>` from its mangled
+    name (the last name of the nested name, with a bool template argument
+    where it has one)."""
     i, name = 3, mangled
     while i < len(mangled) and mangled[i].isdigit():
         j = i

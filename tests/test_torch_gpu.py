@@ -110,22 +110,73 @@ def test_sweep_refuses_misaligned_operands(cuda):
     assert sw.sweep(flat[:-1], c2, code).shape == (5, 256)
 
 
-@pytest.mark.parametrize("variant,n1,n2,other", [
-    ("v2", 1000, 137, True), ("v2", 131072, 8192, False), ("v2", 50_000, 3000, True),
-    ("v3", 1000, 137, False), ("v3", 100_000, 10_000, False),
-    ("v3", 400_000, 2048, False)])
-def test_lab_kernels_match_plain(cuda, variant, n1, n2, other):
+# The lab kernels' cases: (variant, n1, n2, other) on random codes, and the
+# edges of v3's split by name (both kernels, v2 as the control).
+LAB_CASES = [("v2", 1000, 137, True), ("v2", 131072, 8192, False),
+             ("v2", 50_000, 3000, True), ("v3", 1000, 137, False),
+             ("v3", 100_000, 10_000, False), ("v3", 400_000, 2048, False)]
+LAB_EDGES = {  # name: (n1, n2)
+    # l2p = MAX_N2 over 128 tiles, so that segments hold LANE_CHUNKS chunks:
+    # every pair in class 2 (both slot bits: every byte lane counts), and
+    # every pair at the largest code the contract allows (126)
+    "max_n2_one_class": (v3.MAX_N2 + 128 * 256 - 1, v3.MAX_N2),
+    "max_n2_max_code": (v3.MAX_N2 + 128 * 256 - 1, v3.MAX_N2),
+    "one_tile_one_chunk": (300, 64),              # noff_pad 256, l2p 64
+    "segments_uneven": (1_000_000, 2000),         # 32 chunks over 3 segments
+    "one_segment_per_tile": (1_000_000, 500),     # 8 chunks, tiles >= 2 x slots
+}
+
+
+def lab_edge_inputs(case, rng):
+    """(c1, c2, code) of a LAB_EDGES case: the saturation cases are one
+    letter pair repeated; the others clean random codes."""
+    n1, n2 = LAB_EDGES[case]
+    code = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False).code.copy()
+    if case.startswith("max_n2"):
+        a, b = 0, 2                                # class 2 under these weights
+        if case == "max_n2_max_code":
+            code[a, b] = 126
+        assert (code[a, b] - 1) & 3 == (2 if case == "max_n2_one_class" else 1)
+        return np.full(n1, a), np.full(n2, b), code
+    return rng.integers(0, 26, n1), rng.integers(0, 26, n2), code
+
+
+@pytest.mark.parametrize("variant,n1,n2,other,edge", [
+    *(pytest.param(v, n1, n2, o, None, id=f"{v}-{n1}-{n2}-{o}") for v, n1, n2, o in LAB_CASES),
+    *(pytest.param(v, *LAB_EDGES[e], False, e, id=f"{v}-{e}")
+      for e in LAB_EDGES for v in ("v2", "v3"))])
+def test_lab_kernels_match_plain(cuda, variant, n1, n2, other, edge):
     """The tensor-core sweeps, all 8 rows integer-equal to their plain
-    versions on the card; v3 only on clean inputs, its row 3 zero."""
+    versions on the card; v3 only on clean inputs, its row 3 zero.  The
+    edges of v3's split: l2p = MAX_N2 with every byte lane full (one class,
+    then the largest code), one tile of one chunk, a chunk count the
+    segments do not divide, one segment per tile; v3's card plan equals
+    `v3_launch_plan` at each."""
     mod, sweep, plain, count = {
         "v2": (v2, v2.sweep_v2, v2.sweep_v2_plain, "launches_v2"),
         "v3": (v3, v3.sweep_v3, v3.sweep_v3_plain, "launches_v3")}[variant]
     rng = np.random.default_rng(n1 + n2 + 1)
-    tables = build_tables(np.array([2.0, 1.0, 5.0, 0.5]), True)
+    if edge:
+        c1, c2, table = lab_edge_inputs(edge, rng)
+    else:
+        c1, c2 = codes(rng, n1, other), codes(rng, n2, other)
+        table = build_tables(np.array([2.0, 1.0, 5.0, 0.5]), True).code
     noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
-    d1 = sw.upload_codes(codes(rng, n1, other), l1k, cuda)
-    d2 = sw.upload_codes(codes(rng, n2, other), l2p, cuda)
-    code = torch.from_numpy(tables.code).to(cuda)
+    card = v3.v3_card_plan(noff_pad, l2p)
+    model = v3.v3_launch_plan(noff_pad, l2p, card["slots"])
+    print(variant, edge or (n1, n2), card)
+    assert {k: card[k] for k in ("tiles", "chunks", "segs", "blocks", "most_chunks")} == {
+        k: model[k] for k in ("tiles", "chunks", "segs", "blocks", "most_chunks")}
+    if edge:
+        assert {"max_n2_one_class": card["most_chunks"] == v3.LANE_CHUNKS,
+                "max_n2_max_code": card["most_chunks"] == v3.LANE_CHUNKS,
+                "one_tile_one_chunk": (noff_pad, l2p, card["segs"]) == (256, 64, 1),
+                "segments_uneven": card["chunks"] % card["segs"] != 0,
+                "one_segment_per_tile": card["segs"] == 1 and card["chunks"] > 1,
+                }[edge]
+    d1 = sw.upload_codes(c1, l1k, cuda)
+    d2 = sw.upload_codes(c2, l2p, cuda)
+    code = torch.from_numpy(table).to(cuda)
     before = getattr(mod, count)
     got = sweep(d1, d2, code)
     torch.cuda.synchronize()

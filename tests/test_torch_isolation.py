@@ -24,7 +24,7 @@ def test_import_leaves_no_jax_or_psa_tpu():
     code = ("import sys, psa_torch, psa_torch.utils.cli, psa_torch.models.batch, "
             "psa_torch.utils.pretty, psa_torch.utils.generator, psa_torch.config, "
             "psa_torch.ops._sweep_v2, psa_torch.ops._sweep_v3, "
-            "psa_torch.utils.kernel_lab, psa_torch.native; "
+            "psa_torch.utils.kernel_lab, psa_torch.utils.lab_ab, psa_torch.native; "
             "assert psa_torch.native.available(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'psa_tpu')); print(bad)")
@@ -40,7 +40,7 @@ def test_static_scan_finds_no_jax_or_psa_tpu_import():
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
     for f in ("models/batch.py", "ops/_sweep_v2.py", "ops/_sweep_v3.py",
-              "utils/kernel_lab.py", "native/__init__.py"):
+              "utils/kernel_lab.py", "utils/lab_ab.py", "native/__init__.py"):
         assert ROOT / "psa_torch" / f in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]

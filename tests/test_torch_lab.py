@@ -252,7 +252,7 @@ def test_kernel_lab_refuses_without_result(argv, monkeypatch, capsys):
 
 
 SASS = """
-        Function : _ZN45_GLOBAL__N__71c8276e_12_sweep_mma_cu_c09359e616sweep_mma_kernelILb1EEEvPKhS2_iPKaPii
+        Function : _ZN45_GLOBAL__N__71c8276e_12_sweep_mma_cu_c09359e616sweep_mma_kernelEPKhS1_iPKaPii
         /*0000*/                   MOV R1, c[0x0][0x28] ;
         /*0010*/                   IMMA.16832.S8.S8 R4, R8, R12, RZ ;
         /*0020*/                   STS.U8 [R2], R4 ;
@@ -269,8 +269,8 @@ def test_sass_loop_mix_reads_the_main_loop():
     """The loop is the widest backward branch, split at its barriers; a
     kernel without a loop is left out."""
     mix = kernel_lab.sass_loop_mix(SASS)
-    assert list(mix) == ["sweep_mma_kernel<true>"]
-    got = mix["sweep_mma_kernel<true>"]
+    assert list(mix) == ["sweep_mma_kernel"]
+    got = mix["sweep_mma_kernel"]
     assert got["instructions"] == 5 and got["segments"] == [2, 2]
     assert got["per_pair"] == 5 / v2.CHUNK
     assert got["mix"] == {"IMMA.16832.S8.S8": 1, "STS.U8": 1,

@@ -5,9 +5,9 @@
 
 Builds the sweep kernels from psa_torch/csrc and holds each against its
 plain PyTorch version on the card (`sweep` also at the edges of its even
-split, with the card's split beside `sweep_plan`'s; the lab's v3 at the
-edges of its Seq2 segments, with the card's split beside
-`v3_launch_plan`'s and v2 on the same inputs).  Drives the port's
+split, with the card's split beside `sweep_plan`'s; the lab's v2 and v3 at
+the edges of their Seq2 segments, each with the card's split beside its
+launch plan, `v2_launch_plan`'s or `v3_launch_plan`'s).  Drives the port's
 paths, each with the kernels' launch counts zeroed just before it and read
 just after:
 - the single-query path (the engine and the `psa_torch.utils.cli` CLI) at
@@ -419,30 +419,54 @@ def sweep_checks(torch, sw, code, dev):
     return max_abs
 
 
-def v3_edges(v3):
-    """The edges of v3's split (csrc/sweep_mma_v3.cu): (case, n1, n2, letter
-    pair or None for random codes, code at that pair or None).  l2p =
-    MAX_N2 over 128 tiles makes segments of LANE_CHUNKS chunks, so every
-    byte lane fills: every pair in class 2 (both slot bits), then every
-    pair at the largest code the contract allows (126); one tile of one
-    chunk; a chunk count the segments do not divide; one segment per
-    tile."""
+def lab_edges(v3):
+    """The edges of the lab kernels' Seq2 splits (csrc/sweep_mma.cuh):
+    (case, n1, n2, letter pair or None for random codes, code at that pair
+    or None, hyphen and OTHER_CODE shares).  l2p = MAX_N2 over 128 tiles
+    makes v3's segments of LANE_CHUNKS chunks, so every byte lane fills:
+    every pair in class 2 (both slot bits), then every pair at the largest
+    code the contract allows (126, also v2's DPX max over several
+    segments); one tile of one chunk; a chunk count v3's segments do not
+    divide; one segment per tile (both); 157 chunks, a prime, over v2's
+    segments; and a lenient query over v2's segments, whose row 3 goes
+    through the atomics (v2 only)."""
     n1_full = v3.MAX_N2 + 128 * 256 - 1
-    return [("max_n2_one_class", n1_full, v3.MAX_N2, (0, 2), None),
-            ("max_n2_max_code", n1_full, v3.MAX_N2, (0, 2), 126),
-            ("one_tile_one_chunk", 300, 64, None, None),
-            ("segments_uneven", 1_000_000, 2000, None, None),
-            ("one_segment_per_tile", 1_000_000, 500, None, None)]
+    return [("max_n2_one_class", n1_full, v3.MAX_N2, (0, 2), None, 0.0, 0.0),
+            ("max_n2_max_code", n1_full, v3.MAX_N2, (0, 2), 126, 0.0, 0.0),
+            ("one_tile_one_chunk", 300, 64, None, None, 0.0, 0.0),
+            ("segments_uneven", 1_000_000, 2000, None, None, 0.0, 0.0),
+            ("one_segment_per_tile", 1_000_000, 500, None, None, 0.0, 0.0),
+            ("v2_segments_uneven", 100_000, 10_000, None, None, 0.0, 0.0),
+            ("v2_lenient_segments", 200_000, 3000, None, None, 0.05, 0.05)]
 
 
-def v3_plan(v3, noff_pad: int, l2p: int):
-    """v3's split on the card, checked against `v3_launch_plan` with the
-    card's slots."""
-    card = v3.v3_card_plan(noff_pad, l2p)
-    model = v3.v3_launch_plan(noff_pad, l2p, card["slots"])
+# What each edge must be in a kernel's split on the card; a kernel that runs
+# an edge only as the control has no entry.
+LAB_EDGE_HOLDS = {
+    ("sweep_v3", "max_n2_one_class"): lambda p, v3: p["most_chunks"] == v3.LANE_CHUNKS,
+    ("sweep_v3", "max_n2_max_code"): lambda p, v3: p["most_chunks"] == v3.LANE_CHUNKS,
+    ("sweep_v2", "max_n2_max_code"): lambda p, v3: p["segs"] > 1,
+    ("sweep_v2", "one_tile_one_chunk"): lambda p, v3: (p["tiles"], p["chunks"], p["segs"]) == (1, 1, 1),
+    ("sweep_v3", "one_tile_one_chunk"): lambda p, v3: (p["tiles"], p["chunks"], p["segs"]) == (1, 1, 1),
+    ("sweep_v3", "segments_uneven"): lambda p, v3: p["chunks"] % p["segs"] != 0,
+    ("sweep_v2", "one_segment_per_tile"): lambda p, v3: p["segs"] == 1 < p["chunks"],
+    ("sweep_v3", "one_segment_per_tile"): lambda p, v3: p["segs"] == 1 < p["chunks"],
+    ("sweep_v2", "v2_segments_uneven"): lambda p, v3: 1 < p["segs"] and p["chunks"] % p["segs"] != 0,
+    ("sweep_v2", "v2_lenient_segments"): lambda p, v3: p["segs"] > 1,
+}
+
+
+def lab_plan(v2, v3, kernel: str, noff_pad: int, l2p: int):
+    """A lab kernel's split on the card (`v2_card_plan`, `v3_card_plan`),
+    checked against its launch plan (`v2_launch_plan`, `v3_launch_plan`)
+    with the card's slots."""
+    card_plan, launch_plan = {"sweep_v2": (v2.v2_card_plan, v2.v2_launch_plan),
+                              "sweep_v3": (v3.v3_card_plan, v3.v3_launch_plan)}[kernel]
+    card = card_plan(noff_pad, l2p)
+    model = launch_plan(noff_pad, l2p, card["slots"])
     keys = ("tiles", "chunks", "segs", "blocks", "most_chunks")
     if any(card[k] != model[k] for k in keys):
-        raise AssertionError(f"the card's v3 split {card} is not v3_launch_plan's "
+        raise AssertionError(f"the card's {kernel} split {card} is not its launch plan's "
                              f"{ {k: model[k] for k in keys} }")
     return card
 
@@ -450,30 +474,21 @@ def v3_plan(v3, noff_pad: int, l2p: int):
 def lab_kernel_checks(torch, sw, v2, v3, code, dev):
     """The lab's tensor-core sweeps against their plain versions on the
     card, all 8 rows (tolerance 0: every statistic is an exact integer); v3
-    on clean inputs only, each case with v3's split; then v3's edges
-    (`v3_edges`) with v2 on the same inputs as the control.  Returns
-    {kernel: max_abs_diff} or raises."""
+    on clean inputs only, each case with each kernel's split; then the
+    splits' edges (`lab_edges`), each checked against LAB_EDGE_HOLDS.
+    Returns {kernel: max_abs_diff} or raises."""
     rng = np.random.default_rng(303)
     worst = {"sweep_v2": 0, "sweep_v3": 0}
-    cases = [(case, n1, n2, hp, op, None, None)
+    cases = [(case, n1, n2, None, None, hp, op)
              for case, n1, n2, hp, op in (("ragged", 1000, 137, 0.05, 0.0),
                                           ("bench", LAB["n1"], LAB["n2"], 0.0, 0.0),
                                           ("north_star", 100_000, 10_000, 0.0, 0.0),
                                           ("long_seq1", 400_000, 2048, 0.0, 0.0),
                                           ("lenient", 50_000, 3000, 0.05, 0.05))]
-    cases += [(case, n1, n2, 0.0, 0.0, pair, top)
-              for case, n1, n2, pair, top in v3_edges(v3)]
+    cases += lab_edges(v3)
     table = code.cpu().numpy()
-    for case, n1, n2, hp, op, pair, top in cases:
+    for case, n1, n2, pair, top, hp, op in cases:
         noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
-        plan = v3_plan(v3, noff_pad, l2p)
-        want = {"max_n2_one_class": plan["most_chunks"] == v3.LANE_CHUNKS,
-                "max_n2_max_code": plan["most_chunks"] == v3.LANE_CHUNKS,
-                "one_tile_one_chunk": (noff_pad, l2p, plan["segs"]) == (256, 64, 1),
-                "segments_uneven": plan["chunks"] % plan["segs"] != 0,
-                "one_segment_per_tile": plan["segs"] == 1 < plan["chunks"]}.get(case, True)
-        if not want:
-            raise AssertionError(f"v3's split at {case} is not the edge it tests: {plan}")
         case_code = code
         if pair is None:
             c1, c2 = random_codes(rng, n1, hp, op), random_codes(rng, n2, hp, op)
@@ -489,6 +504,10 @@ def lab_kernel_checks(torch, sw, v2, v3, code, dev):
         if op == 0.0:
             kernels.append(("sweep_v3", v3.sweep_v3, v3.sweep_v3_plain))
         for kernel, fn, plain in kernels:
+            plan = lab_plan(v2, v3, kernel, noff_pad, l2p)
+            if not LAB_EDGE_HOLDS.get((kernel, case), lambda p, v3: True)(plan, v3):
+                raise AssertionError(f"{kernel}'s split at {case} is not the edge it "
+                                     f"tests: {plan}")
             got = fn(d1, d2, case_code)
             torch.cuda.synchronize()
             diff = int((got.long() - plain(d1, d2, case_code).long()).abs().max().item())
@@ -497,7 +516,8 @@ def lab_kernel_checks(torch, sw, v2, v3, code, dev):
                   "n1": n1, "n2": n2, "noff_pad": noff_pad, "l2p": l2p,
                   "max_abs_diff": diff, "tolerance": 0,
                   "rows4_sum": int(got[:4, :noff].sum().item()),
-                  "max_code": int(got[4, :noff].max().item()), "v3_plan": plan})
+                  "row3_sum": int(got[3, :noff].sum().item()),
+                  "max_code": int(got[4, :noff].max().item()), "plan": plan})
             if diff != 0:
                 raise AssertionError(f"{kernel} disagrees with its plain version "
                                      f"at {case}")
@@ -1195,7 +1215,7 @@ def main() -> int:
                   "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3],
                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_terms_ms": terms,
                   "dispatch_ms": dispatch_ms(sass, compiled, float(noff) * n2),
-                  "v3_plan": v3_plan(v3, noff_pad, l2p),
+                  "plan": lab_plan(v2, v3, kernel, noff_pad, l2p),
                   "v1_ms_this_run": timings[name]["ms"], "runs": 20,
                   "back_to_back": KERNEL_BACK_TO_BACK, "plain_runs": 5})
 

@@ -39,7 +39,8 @@
 //     The segment count is the least that gives every resident block slot
 //     (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs) two blocks and
 //     keeps a segment within kLaneChunks chunks, capped at one chunk per
-//     segment (v3_segments; ops/_sweep_v3.v3_launch_plan is its model).  One
+//     segment (psa_mma::segments in sweep_mma.cuh, shared with v2;
+//     ops/_sweep_v3.v3_launch_plan is its model).  One
 //     block per tile held 481 blocks on 132 SMs at 131072 x 8192, under one
 //     wave; the split makes 9 x 481.
 //   * Counters that hold a whole segment.  A byte lane gains at most
@@ -67,8 +68,6 @@
 // STS.U8 a warp and chunk, as many shared-memory wavefronts as the issue
 // slots the loop needs), two barriers per chunk, and issue at about half
 // the dispatch rate (PERF.md).
-
-#include <climits>
 
 #include "sweep_mma.cuh"
 
@@ -202,40 +201,6 @@ sweep_v3_kernel(const uint8_t* __restrict__ c1,
   }
 }
 
-// Segments of Seq2 per tile for `tiles` tiles of `chunks` chunks on a card
-// of `slots` resident block slots (ops/_sweep_v3.v3_launch_plan).
-int v3_segments(long tiles, int chunks, long slots) {
-  const long lanes = (chunks + kLaneChunks - 1) / kLaneChunks;
-  const long fill = (kBlocksPerSlot * slots + tiles - 1) / tiles;
-  return static_cast<int>(min(static_cast<long>(chunks), max(lanes, fill)));
-}
-
-struct Plan {
-  int per_sm, slots, tiles, chunks, segs;
-};
-
-bool bad_shapes(int l2p, int noff_pad) {
-  return noff_pad <= 0 || noff_pad % kTile != 0 || l2p <= 0 || l2p % kChunk != 0 ||
-         l2p > INT_MAX - noff_pad;
-}
-
-cudaError_t plan_launch(int l2p, int noff_pad, Plan* p) {
-  int dev = 0, sms = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->per_sm, sweep_v3_kernel,
-                                                           kThreads, 0)) != cudaSuccess) {
-    return err;
-  }
-  if (p->per_sm < 1) return cudaErrorInvalidConfiguration;
-  p->slots = p->per_sm * sms;
-  p->tiles = noff_pad / kTile;
-  p->chunks = l2p / kChunk;
-  p->segs = v3_segments(p->tiles, p->chunks, p->slots);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -245,37 +210,14 @@ extern "C" {
 // kTile, l2p of kChunk.  With more than one segment it zeroes `out` first.
 int psa_sweep_v3_launch(const void* c1, int l1k, const void* c2, int l2p,
                         const void* code, void* out, int noff_pad, void* stream) {
-  if (bad_shapes(l2p, noff_pad) || l1k != noff_pad + l2p) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Plan p;
-  cudaError_t err = plan_launch(l2p, noff_pad, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.segs > 1 &&
-      (err = cudaMemsetAsync(out, 0, sizeof(int32_t) * 8 * static_cast<size_t>(noff_pad), s)) !=
-          cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  sweep_v3_kernel<<<dim3(p.tiles, p.segs), kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(c1), static_cast<const uint8_t*>(c2), p.chunks,
-      static_cast<const int8_t*>(code), static_cast<int32_t*>(out), noff_pad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split(sweep_v3_kernel, kBlocksPerSlot, kLaneChunks, c1, l1k, c2, l2p, code,
+                      out, noff_pad, stream);
 }
 
-// The split a v3 launch of these shapes takes on the current device:
-// plan[0..6] = resident blocks per SM, resident block slots, tiles, chunks,
-// segments per tile, blocks, the most chunks one segment holds.
+// The split a v3 launch of these shapes takes on the current device
+// (psa_mma::write_plan).
 int psa_sweep_v3_plan(int l2p, int noff_pad, long long* plan) {
-  if (bad_shapes(l2p, noff_pad)) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p;
-  const cudaError_t err = plan_launch(l2p, noff_pad, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long v[7] = {p.per_sm, p.slots, p.tiles, p.chunks, p.segs,
-                          static_cast<long long>(p.tiles) * p.segs,
-                          (p.chunks + p.segs - 1) / p.segs};
-  for (int i = 0; i < 7; ++i) plan[i] = v[i];
-  return 0;
+  return write_plan(sweep_v3_kernel, kBlocksPerSlot, kLaneChunks, l2p, noff_pad, plan);
 }
 
 }  // extern "C"

@@ -10,12 +10,21 @@ contraction (here `mma.sync.m16n8k32.s8`), the band is sheared to offsets and
 decoded 4 pairs to a 32-bit word, and the counts are folded once per chunk
 (csrc/sweep_mma.cu, `sweep_mma_kernel`).
 
+The launch splits Seq2 into segments of whole chunks, one block per (tile,
+segment), so that the grid fills the card; segments of one tile meet in
+atomics on an output the launch zeroes first.  `segment_plan` models that
+split for both lab kernels (csrc/sweep_mma.cuh `launch_split`); v2 folds its
+byte-lane counters every chunk, so its segments need no lane cap
+(`v2_launch_plan`), and `v2_card_plan` is the card's own split.
+
 `sweep_v2` launches that kernel for CUDA tensors and runs `sweep_v2_plain`
 for CPU tensors.  Since v2 computes v1's function, the plain version is
 `ops/sweep.sweep_rows_plain` at v2's padding.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -28,11 +37,16 @@ TILE = sw.MMA_TILE     # offsets per thread block
 CHUNK = sw.MMA_CHUNK   # Seq2 positions per band; Seq2 pads to it
 
 # INT32 operations of the decode per 4-pair word, counted from
-# csrc/sweep_mma.cu: the byte max, lo (and), hi (shift, and), both (and),
-# three adds, and the valid count (add, and, shift, add); the fold's four dp4a
-# per 16 words are left out.  With the max counted as one operation this is a
-# floor: __vmaxu4 is emulated on Hopper.
-DECODE_OPS_PER_WORD = 12
+# csrc/sweep_mma.cu, which takes two words a step: the byte max 2 (the
+# even-byte mask, and half of each of the two __vimax3_s16x2), lo 1 (and),
+# hi 2 (shift, and), both 1 (and), the three counters' adds 1.5 (one
+# three-input add per counter and step), and the valid count 3 (add, and,
+# dp4a).  The fold once per chunk (three dp4a, a shift and an add per 16
+# words) is left out.
+DECODE_OPS_PER_WORD = 10.5
+# Blocks the split aims to give each resident block slot (csrc/sweep_mma.cu
+# kBlocksPerSlot).
+BLOCKS_PER_SLOT = 2
 
 launches_v2 = 0
 
@@ -48,6 +62,56 @@ def plan_shapes_v2(n1: int, n2: int):
     l2p = round_up(max(n2, 1), CHUNK)
     noff_pad = round_up(noff, TILE)
     return noff, noff_pad, l2p, noff_pad + l2p
+
+
+def segment_plan(noff_pad: int, l2p: int, slots: int, per_slot: int,
+                 lane_chunks: int | None = None) -> dict:
+    """The split of one lab launch over a card of `slots` resident block
+    slots, as csrc/sweep_mma.cuh `segments` takes it.  Seq2's l2p / CHUNK
+    chunks are cut into `segs` segments, the least count that gives every
+    slot `per_slot` blocks and keeps a segment within `lane_chunks` chunks
+    (None: no cap), capped at one chunk per segment; segment s holds the
+    chunks [s C // S, (s + 1) C // S).  The grid is one block per (tile,
+    segment).  Returns tiles, chunks, segs, blocks, most_chunks (the longest
+    segment), atomic (segments meet in atomics) and segments (each one's
+    (first chunk, end chunk))."""
+    tiles, chunks = noff_pad // TILE, l2p // CHUNK
+    fill = -(-per_slot * slots // tiles)
+    lanes = 1 if lane_chunks is None else -(-chunks // lane_chunks)
+    segs = min(chunks, max(lanes, fill))
+    bounds = [s * chunks // segs for s in range(segs + 1)]
+    segments = list(zip(bounds[:-1], bounds[1:]))
+    return {"tiles": tiles, "chunks": chunks, "segs": segs,
+            "blocks": tiles * segs,
+            "most_chunks": max(e - b for b, e in segments),
+            "atomic": segs > 1, "segments": segments}
+
+
+def card_plan(entry: str, noff_pad: int, l2p: int) -> dict:
+    """The split a lab launch of these shapes takes on the current CUDA
+    device, from C entry point `entry` (csrc/sweep_mma.cuh `write_plan`):
+    resident blocks per SM, resident block slots, tiles, chunks, segs,
+    blocks, most_chunks."""
+    lib = sw.build_library()
+    plan = (ctypes.c_longlong * 7)()
+    err = getattr(lib, entry)(l2p, noff_pad, plan)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: " + lib.psa_error_string(err).decode())
+    return dict(zip(("blocks_per_sm", "slots", "tiles", "chunks", "segs",
+                     "blocks", "most_chunks"), plan))
+
+
+def v2_launch_plan(noff_pad: int, l2p: int, slots: int) -> dict:
+    """`segment_plan` of one v2 launch: BLOCKS_PER_SLOT blocks per slot, no
+    lane cap (the counters fold every chunk)."""
+    return segment_plan(noff_pad, l2p, slots, BLOCKS_PER_SLOT)
+
+
+def v2_card_plan(noff_pad: int, l2p: int) -> dict:
+    """The split a v2 launch of these shapes takes on the current CUDA
+    device (csrc/sweep_mma.cu psa_sweep_v2_plan); `v2_launch_plan` with
+    its slots gives the same tiles, chunks, segs, blocks and most_chunks."""
+    return card_plan("psa_sweep_v2_plan", noff_pad, l2p)
 
 
 def check_v2(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor):

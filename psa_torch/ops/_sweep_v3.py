@@ -20,14 +20,13 @@ It takes the inputs JAX's v3 takes: `_sweep_pallas_v3` refuses more than
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from psa_torch.core.tables import ScoringTables
 from psa_torch.ops import sweep as sw
-from psa_torch.ops._sweep_v2 import CHUNK, TILE, check_v2, plan_shapes_v2
+from psa_torch.ops._sweep_v2 import (CHUNK, TILE, card_plan, check_v2,
+                                     plan_shapes_v2, segment_plan)
 
 MAX_N2 = 127 * 256
 
@@ -63,23 +62,12 @@ def check_v3(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor):
 
 def v3_launch_plan(noff_pad: int, l2p: int, slots: int) -> dict:
     """The split of one v3 launch over a card of `slots` resident block
-    slots, as csrc/sweep_mma_v3.cu takes it.  Seq2's l2p / CHUNK chunks are
-    cut into `segs` segments, the least count that gives every slot
-    BLOCKS_PER_SLOT blocks and keeps a segment within LANE_CHUNKS chunks,
-    capped at one chunk per segment; segment s holds the chunks [s C // S,
-    (s + 1) C // S).  The grid is one block per (tile, segment).  Returns
-    tiles, chunks, segs, blocks, most_chunks (the longest segment), atomic
-    (segments meet in atomics) and segments (each one's (first chunk, end
-    chunk))."""
-    tiles, chunks = noff_pad // TILE, l2p // CHUNK
-    fill = -(-BLOCKS_PER_SLOT * slots // tiles)
-    segs = min(chunks, max(-(-chunks // LANE_CHUNKS), fill))
-    bounds = [s * chunks // segs for s in range(segs + 1)]
-    segments = list(zip(bounds[:-1], bounds[1:]))
-    return {"tiles": tiles, "chunks": chunks, "segs": segs,
-            "blocks": tiles * segs,
-            "most_chunks": max(e - b for b, e in segments),
-            "atomic": segs > 1, "segments": segments}
+    slots, as csrc/sweep_mma_v3.cu takes it: `segment_plan` with
+    BLOCKS_PER_SLOT blocks per slot and segments of at most LANE_CHUNKS
+    chunks.  Returns tiles, chunks, segs, blocks, most_chunks (the longest
+    segment), atomic (segments meet in atomics) and segments (each one's
+    (first chunk, end chunk))."""
+    return segment_plan(noff_pad, l2p, slots, BLOCKS_PER_SLOT, LANE_CHUNKS)
 
 
 def v3_card_plan(noff_pad: int, l2p: int) -> dict:
@@ -88,14 +76,7 @@ def v3_card_plan(noff_pad: int, l2p: int) -> dict:
     SM, resident block slots, tiles, chunks, segs, blocks, most_chunks.
     `v3_launch_plan` with its slots gives the same tiles, chunks, segs,
     blocks and most_chunks."""
-    lib = sw.build_library()
-    plan = (ctypes.c_longlong * 7)()
-    err = lib.psa_sweep_v3_plan(l2p, noff_pad, plan)
-    if err != 0:
-        raise RuntimeError("psa_sweep_v3_plan failed: "
-                           + lib.psa_error_string(err).decode())
-    return dict(zip(("blocks_per_sm", "slots", "tiles", "chunks", "segs",
-                     "blocks", "most_chunks"), plan))
+    return card_plan("psa_sweep_v3_plan", noff_pad, l2p)
 
 
 def sweep_v3(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tensor:

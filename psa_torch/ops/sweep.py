@@ -170,13 +170,13 @@ def build_library() -> ctypes.CDLL:
     lib.psa_sweep_batched_plan.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_longlong)]
-    for fn in (lib.psa_sweep_plan, lib.psa_sweep_v3_plan):
+    for fn in (lib.psa_sweep_plan, lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan):
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_longlong)]
     for fn in (lib.psa_sweep_tile, lib.psa_sweep_align, lib.psa_sweep_seg,
                lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk,
                lib.psa_sweep_batched_plan, lib.psa_sweep_plan,
-               lib.psa_sweep_v3_plan):
+               lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan):
         fn.restype = ctypes.c_int
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p

@@ -21,7 +21,8 @@ nor have its Mosaic layout choices `--shear` and `--pack`, `--counts` or
 
 `sass_loop_mix(sass_of(library))` reads the static instruction mix of each
 kernel's main loop from the built library (chip_smoke.py prints it), the
-per-pair instruction count that the variants' times follow.
+per-pair instruction count that the variants' times follow, and
+`ptxas_registers` each kernel's registers from the build log.
 `cuda_ms` (CUDA events around one launch or several back to back) and
 `dispatch_ms` (that mix's floor) are the timer and the floor that
 chip_smoke.py and `utils/lab_ab` report with.
@@ -176,6 +177,13 @@ def sass_loop_mix(sass: str) -> dict:
                      "per_pair": len(loop) / pairs if pairs else None,
                      "mix": dict(collections.Counter(loop).most_common())}
     return out
+
+
+def ptxas_registers(log: str) -> dict:
+    """{kernel: registers per thread} from nvcc's `-Xptxas -v` output (the
+    build log that `ops/sweep.build_library` keeps beside the library)."""
+    return {_kernel_name(m.group(1)): int(m.group(2)) for m in re.finditer(
+        r"Compiling entry function '(\S+)'.*?Used (\d+) registers", log, re.S)}
 
 
 def _variant(name: str):

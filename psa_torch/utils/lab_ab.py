@@ -11,8 +11,11 @@ its own that imports TREE's `psa_torch`, builds TREE's library and, at each
 of SHAPES (clean random codes, seed 7), holds TREE's `sweep_v2` and
 `sweep_v3` against TREE's plain versions (tolerance 0: exact integers) and
 times them: one launch per pair of CUDA events, and BACK_TO_BACK launches
-per pair, the median of RUNS each.  The timer (`cuda_ms`), the SASS reader
-(`sass_loop_mix`) and `dispatch_ms` are this checkout's `kernel_lab`, the
+per pair, the median of RUNS each.  Each time carries the kernel's split on
+the card where TREE's library exports its plan entry point (PLANS), and
+each run the kernels' registers from TREE's build log.  The timer
+(`cuda_ms`), the SASS reader (`sass_loop_mix`), the register reader
+(`ptxas_registers`) and `dispatch_ms` are this checkout's `kernel_lab`, the
 ones chip_smoke.py reports with, loaded from its file so that both
 packages never meet in one process; `dispatch_ms` reads the main loops of
 the kernels named in COMPILED, and is null for a tree whose kernels carry
@@ -39,6 +42,11 @@ RUNS = 20
 BACK_TO_BACK = 10
 # The lab's kernels by their compiled names (kernel_lab.LOOP_PAIRS).
 COMPILED = {"sweep_v2": "sweep_mma_kernel", "sweep_v3": "sweep_v3_kernel"}
+# The C entry points that report each kernel's split (csrc/sweep_mma.cuh
+# write_plan): blocks per SM, slots, tiles, chunks, segs, blocks, most_chunks.
+PLANS = {"sweep_v2": "psa_sweep_v2_plan", "sweep_v3": "psa_sweep_v3_plan"}
+PLAN_KEYS = ("blocks_per_sm", "slots", "tiles", "chunks", "segs", "blocks",
+             "most_chunks")
 
 
 def this_kernel_lab():
@@ -49,6 +57,22 @@ def this_kernel_lab():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def card_plan(lib, entry: str, noff_pad: int, l2p: int):
+    """The split `entry` reports for these shapes, or None where the library
+    has no such entry point."""
+    import ctypes
+
+    if not hasattr(lib, entry):
+        return None
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_longlong * len(PLAN_KEYS))()
+    if fn(l2p, noff_pad, plan) != 0:
+        raise RuntimeError(f"{entry} failed")
+    return dict(zip(PLAN_KEYS, plan))
 
 
 def run_tree(tree: str) -> dict:
@@ -66,8 +90,12 @@ def run_tree(tree: str) -> dict:
 
     if not Path(sw.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"psa_torch imported from {sw.__file__}, not {root}")
-    sass = lab.sass_loop_mix(lab.sass_of(sw.build_library()._name))
+    lib = sw.build_library()
+    sass = lab.sass_loop_mix(lab.sass_of(lib._name))
+    log = Path(lib._name).with_suffix(".log")
+    regs = lab.ptxas_registers(log.read_text()) if log.exists() else {}
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "sass": sass,
+           "registers": {k: regs.get(name) for k, name in COMPILED.items()},
            "times": {}}
     code = torch.from_numpy(lab.lab_inputs(64, 64)[0].code).cuda()
     rng = np.random.default_rng(7)
@@ -87,7 +115,8 @@ def run_tree(tree: str) -> dict:
                 "n1": n1, "n2": n2, "max_abs_diff": diff, "ms": one[0],
                 "ms_iqr": one[1:], "ms_back_to_back": bb[0],
                 "back_to_back_iqr": bb[1:],
-                "dispatch_ms": lab.dispatch_ms(sass, COMPILED[kernel], float(noff) * n2)}
+                "dispatch_ms": lab.dispatch_ms(sass, COMPILED[kernel], float(noff) * n2),
+                "plan": card_plan(lib, PLANS[kernel], noff_pad, l2p)}
     return out
 
 
@@ -127,6 +156,7 @@ def main(argv: list[str] | None = None) -> int:
                 rec["ms_back_to_back"].append(t["ms_back_to_back"])
         for kernel, name in COMPILED.items():
             per_tree[f"{kernel} per_pair"] = res["sass"].get(name, {}).get("per_pair")
+            per_tree[f"{kernel} registers"] = res["registers"][kernel]
     print(json.dumps({"ok": ok, "summary": summary}), flush=True)
     return 0 if ok else 1
 

@@ -18,7 +18,17 @@ just after:
   the 109-case file, whose batched launches must be one per microbatch of
   each bucket of 1024-offset keys;
 - the kernel lab (`psa_torch.utils.kernel_lab`): v1, v2 and v3 in turns
-  with `--check` at 131072 x 8192, and its command line once at 100k x 10k.
+  with `--check` at 131072 x 8192, and its command line once at 100k x 10k;
+- the serving tier (`psa_torch.utils.cli --serve`, `--listen`;
+  psa_torch/utils/server.py) on the batch workload's queries as protocol
+  lines, every reply held against the native engine's: 8192 queries with
+  bad and blank lines through OS pipes, 8 TCP clients of 1024 queries at
+  pipeline depths 2 and 4, closed loops of 8 clients x 252 (per-row and on
+  one Seq1), the north-star query as one line, then the same code in this
+  process (the stdin loop on an os.pipe, the TCP server on this thread)
+  with the launches counted per wave, `--backend auto` in a closed loop,
+  one traced 256-line chunk and a chunk's parse/dispatch/finish/format
+  split;
 - the host backends on the native host library (psa_torch/native, built
   with g++ at first use; the smoke fails unless it builds, self-tests and
   answers host selection): the north-star query through `torch`, `native`,
@@ -46,6 +56,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -667,6 +678,467 @@ def traced_busy(torch, fn):
     return (host_ms, sum(dev_us.values()) / 1e3,
             sorted(dev_us.items(), key=lambda kv: -kv[1])[:6])
 
+# The serving tier's waves (the batch workload's queries as protocol lines):
+# 8192 per-row queries through the stdin loop at --serve-batch 1024, the same
+# 8192 from 8 TCP clients of 1024 each at --serve-batch 256 (pipeline depths
+# 2 and 4), and closed loops of 8 clients x 252 (SERVE_r05's 2,016), per-row
+# and on the one Seq1 of seed 0.
+SERVE = dict(clients=8, pipe_batch=1024, tcp_batch=256, closed_per_client=252,
+             depths=(2, 4), bad_lines=16)
+SERVE_CMD = [sys.executable, "-m", "psa_torch.utils.cli", "--serve"]
+
+
+def serve_line(q) -> str:
+    """One protocol line of a Query (the 7 input-file tokens)."""
+    w = " ".join("%g" % x for x in q.weights)
+    return f"{w} {q.seq1} {q.seq2} {'maximum' if q.is_max else 'minimum'}"
+
+
+def reply_line(q, r) -> str:
+    """The reply the server owes to a query with result r (None: none)."""
+    if r is None:
+        return "-1 %g %s" % (float("-inf") if q.is_max else float("inf"), q.seq2)
+    return "%d %g %s" % (r.offset, r.score, r.mutant(q.seq2))
+
+
+def bad_serve_lines(queries, n: int):
+    """n malformed lines, four kinds in turn: too few tokens, nan weights, an
+    out-of-alphabet Seq2, a Seq2 longer than its Seq1."""
+    out = []
+    for i in range(n):
+        q = queries[i]
+        out.append(["1 3 4 2 ABC minimum", f"nan 3 4 2 {q.seq1} {q.seq2} minimum",
+                    f"1 3 4 2 {q.seq1} {q.seq2[:-1]}j minimum",
+                    f"1 3 4 2 {q.seq2} {q.seq1} minimum"][i % 4])
+    return out
+
+
+class ServeProc:
+    """`python -m psa_torch.utils.cli --serve ...` as a subprocess, its stderr
+    drained by a thread (the server's per-chunk log lines are kept)."""
+
+    def __init__(self, args, env_extra=None, stdin=None, stdout=None):
+        env = dict(os.environ, **(env_extra or {}))
+        self.proc = subprocess.Popen([*SERVE_CMD, *args], cwd=ROOT, env=env,
+                                     stdin=stdin, stdout=stdout,
+                                     stderr=subprocess.PIPE, text=True)
+        self.err: list = []
+        self.port = None
+        first = self.proc.stderr.readline() if "--listen" in args else ""
+        if "--listen" in args:
+            if "listening on" not in first:
+                self.proc.kill()
+                raise AssertionError(f"serve --listen did not start: {first!r}")
+            self.port = int(first.rsplit(":", 1)[1])
+        self._t = threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
+                                   daemon=True)
+        self._t.start()
+
+    def chunk_log(self):
+        """(queries, ms) of each chunk the server logged."""
+        out = []
+        for ln in self.err:
+            parts = ln.split()
+            if ln.startswith("[serve]") and "queries" in parts and parts[-1] == "total)":
+                out.append((int(parts[1]), float(parts[parts.index("ms") - 1])))
+        return out
+
+    def stop(self) -> int:
+        import signal
+
+        if self.port is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=30)
+        self._t.join(timeout=10)
+        return rc
+
+
+def tcp_clients(addr, per_client, closed: bool):
+    """Each list of per_client from its own connection, all at once: either
+    every line sent at once and the replies read until the server closes
+    (closed=False), or one line at a time, each sent after the previous
+    reply (closed=True).  Returns (replies per client, closed-loop latencies
+    in ms, seconds from the first connect to the last reply)."""
+    import socket
+
+    replies = [None] * len(per_client)
+    lat: list = []
+    errors: list = []
+
+    def one(c):
+        try:
+            with socket.create_connection(addr, timeout=300) as sock:
+                if closed:
+                    got = []
+                    f = sock.makefile("rb")
+                    for ln in per_client[c]:
+                        t0 = time.perf_counter()
+                        sock.sendall((ln + "\n").encode())
+                        got.append(f.readline().decode().rstrip("\n"))
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                    sock.shutdown(socket.SHUT_WR)
+                    rest = f.read().decode().splitlines()
+                    replies[c] = got + rest
+                    return
+                buf = []
+                reader = threading.Thread(target=lambda: buf.extend(iter(
+                    lambda: sock.recv(1 << 16), b"")))
+                reader.start()
+                sock.sendall(("\n".join(per_client[c]) + "\n").encode())
+                sock.shutdown(socket.SHUT_WR)
+                reader.join(timeout=300)
+                replies[c] = b"".join(buf).decode().splitlines()
+        except OSError as e:
+            errors.append(f"client {c}: {e}")
+
+    threads = [threading.Thread(target=one, args=(c,)) for c in range(len(per_client))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return replies, lat, secs
+
+
+def percentiles(ms):
+    a = np.asarray(ms)
+    return {"p50": float(np.percentile(a, 50)), "p90": float(np.percentile(a, 90)),
+            "p99": float(np.percentile(a, 99)), "max": float(a.max()), "n": int(a.size)}
+
+
+def mismatches(replies, want) -> int:
+    """Reply lines that differ from the expected ones (a missing line counts)."""
+    bad = sum(abs(len(r) - len(w)) for r, w in zip(replies, want))
+    return bad + sum(a != b for r, w in zip(replies, want) for a, b in zip(r, w))
+
+
+def split(lines, n: int, each: int):
+    return [lines[c * each:(c + 1) * each] for c in range(n)]
+
+
+def serve_in_process(srv, per_client, closed: bool):
+    """The TCP server's event loop on this (the main) thread, the clients on
+    a thread that stops the server once every client is answered."""
+    out: list = []
+
+    def drive():
+        try:
+            while srv.bound_addr is None:
+                time.sleep(0.005)
+            out.append(tcp_clients(srv.bound_addr, per_client, closed))
+        except AssertionError as e:
+            out.append(e)
+        finally:
+            srv.request_stop()
+
+    t = threading.Thread(target=drive)
+    t.start()
+    rc = srv.run()
+    t.join(timeout=600)
+    if rc != 0 or not out or isinstance(out[0], AssertionError):
+        raise AssertionError(f"in-process server rc {rc}: {out[:1]}")
+    return out[0]
+
+
+def event_wait_gil(torch, dev, n: int = 4096, reps: int = 40):
+    """Iterations per ms of a pure-Python loop on this thread while another
+    thread waits in `torch.cuda.Event.synchronize` (as the serve loops'
+    Finisher does in `Fetch.wait`), against the same loop while another
+    thread sleeps as long (which releases the GIL).  A wait that held the
+    GIL would leave the loop at ~0."""
+    a = torch.randn(n, n, device=dev)
+    a @ a
+    torch.cuda.synchronize()
+
+    def spin(thread):
+        k = 0
+        thread.start()
+        while thread.is_alive():
+            k += 1
+        return k
+
+    ev = torch.cuda.Event()
+    for _ in range(reps):
+        a @ a
+    ev.record()
+    t0 = time.perf_counter()
+    busy = spin(threading.Thread(target=ev.synchronize))
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asleep = spin(threading.Thread(target=time.sleep, args=(wait_s,)))
+    sleep_s = time.perf_counter() - t0
+    return {"wait_ms": wait_s * 1e3, "iters_per_ms_while_waiting": busy / (wait_s * 1e3),
+            "iters_per_ms_while_sleeping": asleep / (sleep_s * 1e3),
+            "ratio": (busy / wait_s) / (asleep / sleep_s)}
+
+
+def serve_phases(torch, sw, v2, v3, native, batch, Query, wide, ns_line, ns_reply, dev):
+    """The serving tier on the card: the stdin loop and the TCP server as
+    subprocesses, then the same code in this process with the kernels'
+    launch counts read around each wave.  Every phase prints one JSON line;
+    a wrong or missing reply raises AssertionError."""
+    from psa_torch.utils import cli as cli_mod
+    from psa_torch.utils import server as server_mod
+    from psa_torch.utils.io import parse_query_lines
+
+    t_serve = time.perf_counter()
+    w = SERVE
+    rows = wide
+    shared = [Query(q.weights, rows[0].seq1, q.seq2, q.is_max)
+              for q in rows[:w["clients"] * w["closed_per_client"]]]
+    t0 = time.perf_counter()
+    want_rows = [reply_line(q, r) for q, r in
+                 zip(rows, batch.search_batch(rows, backend="native"))]
+    want_shared = [reply_line(q, r) for q, r in
+                   zip(shared, batch.search_batch(shared, backend="native"))]
+    expect_s = time.perf_counter() - t0
+    row_lines = [serve_line(q) for q in rows]
+    shared_lines = [serve_line(q) for q in shared]
+    bad = bad_serve_lines(rows, w["bad_lines"])
+    bad_ents = parse_query_lines(bad)
+    assert all(isinstance(e, str) for e in bad_ents), bad_ents
+    bad_want = ["error " + e for e in bad_ents]
+
+    # serve_pipe: bad and blank lines among the 8192, in order
+    pipe_in, pipe_want = [], []
+    stride = len(row_lines) // w["bad_lines"]
+    for i, (ln, rep) in enumerate(zip(row_lines, want_rows)):
+        if i % stride == stride // 2:
+            k = i // stride
+            pipe_in += [bad[k], ""] if k % 2 else [bad[k]]
+            pipe_want.append(bad_want[k])
+        pipe_in.append(ln)
+        pipe_want.append(rep)
+    warm = row_lines[:2]
+    sp = ServeProc(["--serve-batch", str(w["pipe_batch"])],
+                   stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+    t_start = time.perf_counter()
+    sp.proc.stdin.write("\n".join(warm) + "\n")
+    sp.proc.stdin.flush()
+    got_warm = [sp.proc.stdout.readline().rstrip("\n") for _ in warm]
+    ready_s = time.perf_counter() - t_start
+    writer = threading.Thread(target=lambda: (sp.proc.stdin.write("\n".join(pipe_in) + "\n"),
+                                              sp.proc.stdin.close()))
+    t0 = time.perf_counter()
+    writer.start()
+    got, pipe_s = [], None
+    for ln in sp.proc.stdout:
+        got.append(ln.rstrip("\n"))
+        if len(got) == len(pipe_want):
+            pipe_s = time.perf_counter() - t0
+    pipe_s = pipe_s or time.perf_counter() - t0
+    writer.join(timeout=60)
+    rc = sp.stop()
+    n_bad = mismatches([got_warm, got], [want_rows[:2], pipe_want])
+    log = sp.chunk_log()
+    emit({"phase": "serve_pipe", "queries": len(row_lines), "bad_lines": len(bad),
+          "serve_batch": w["pipe_batch"], "rc": rc, "mismatches": n_bad,
+          "replies": len(got), "expected": len(pipe_want),
+          "queries_per_s": len(row_lines) / pipe_s, "seconds": pipe_s,
+          "start_to_first_replies_s": ready_s,
+          "chunks": len(log), "chunk_ms_median": statistics.median(ms for _, ms in log)
+          if log else None, "expected_replies_native_s": expect_s,
+          "stderr_tail": "".join(sp.err)[-300:] if rc else ""})
+    assert rc == 0 and n_bad == 0, f"serve_pipe: rc {rc}, {n_bad} mismatched replies"
+
+    # serve_tcp: one server per depth, started together, their waves in
+    # turns (2, 4, 4, 2); the closed loops and the long line on depth 2
+    per = len(row_lines) // w["clients"]
+    d0, d1 = w["depths"]
+    srvs = {d: ServeProc(["--listen", "127.0.0.1:0", "--serve-batch", str(w["tcp_batch"])],
+                         env_extra={"PSA_SERVE_INFLIGHT": str(d)}) for d in (d0, d1)}
+    try:
+        for srv in srvs.values():
+            for lines, want in ((row_lines[:8], want_rows[:8]),
+                                (shared_lines[:8], want_shared[:8])):
+                warm_r, _, _ = tcp_clients(("127.0.0.1", srv.port), [lines], False)
+                assert mismatches(warm_r, [want]) == 0, "serve_tcp warm-up"
+        runs = {d: [] for d in srvs}
+        for d in (d0, d1, d1, d0):
+            srv = srvs[d]
+            n_log = len(srv.chunk_log())
+            replies, _, secs = tcp_clients(("127.0.0.1", srv.port),
+                                           split(row_lines, w["clients"], per), False)
+            n_bad = mismatches(replies, split(want_rows, w["clients"], per))
+            assert n_bad == 0, f"serve_tcp depth {d}: {n_bad} mismatched replies"
+            runs[d].append((len(row_lines) / secs, srv.chunk_log()[n_log:]))
+        # depth 2 once more with the other server stopped: does an idle
+        # serve process beside it cost anything?
+        rc_other = srvs[d1].stop()
+        srv = srvs[d0]
+        n_log = len(srv.chunk_log())
+        replies, _, secs = tcp_clients(("127.0.0.1", srv.port),
+                                       split(row_lines, w["clients"], per), False)
+        assert mismatches(replies, split(want_rows, w["clients"], per)) == 0, "serve_tcp alone"
+        alone = (len(row_lines) / secs, srv.chunk_log()[n_log:])
+        for d, got in runs.items():
+            log = [c for _, one in got for c in one]
+            emit({"phase": "serve_tcp", "depth": d, "clients": w["clients"],
+                  "queries": len(row_lines), "serve_batch": w["tcp_batch"], "mismatches": 0,
+                  "queries_per_s": [qps for qps, _ in got], "waves": len(got),
+                  "chunks": len(log), "mean_chunk": statistics.mean(n for n, _ in log),
+                  "chunk_ms_median": statistics.median(ms for _, ms in log),
+                  **({"queries_per_s_other_server_stopped": alone[0],
+                      "chunk_ms_median_other_server_stopped":
+                      statistics.median(ms for _, ms in alone[1])} if d == d0 else
+                     {"rc": rc_other})})
+        srv, addr = srvs[d0], ("127.0.0.1", srvs[d0].port)
+        cl = w["closed_per_client"]
+        for name, lines, want in (("per_row", row_lines, want_rows),
+                                  ("shared_s1", shared_lines, want_shared)):
+            n_log = len(srv.chunk_log())
+            replies, lat, secs = tcp_clients(addr, split(lines, w["clients"], cl), True)
+            n_bad = mismatches(replies, split(want, w["clients"], cl))
+            log = srv.chunk_log()[n_log:]
+            emit({"phase": "serve_tcp_closed_loop", "workload": name, "depth": d0,
+                  "clients": w["clients"], "queries": len(lat), "mismatches": n_bad,
+                  "latency_ms": percentiles(lat), "queries_per_s": len(lat) / secs,
+                  "chunks": len(log), "mean_chunk": statistics.mean(n for n, _ in log),
+                  "chunk_ms_median": statistics.median(ms for _, ms in log),
+                  "chunk_ms_p99": float(np.percentile([ms for _, ms in log], 99))})
+            assert n_bad == 0, f"closed loop {name}: {n_bad} mismatched replies"
+        replies, lat, _ = tcp_clients(addr, [[ns_line]], True)
+        emit({"phase": "serve_long_line", "line_bytes": len(ns_line) + 1,
+              "reply": replies[0][0][:40] + "...", "equal": replies == [[ns_reply]],
+              "ms": lat[0]})
+        assert replies == [[ns_reply]], "serve_long_line: not the north-star winner"
+    finally:
+        rcs = {d: srv.stop() for d, srv in srvs.items()}
+    assert set(rcs.values()) == {0}, f"serve --listen exited {rcs}: " + "".join(
+        ln for srv in srvs.values() for ln in srv.err)[-300:]
+
+    # serve_kernels: the same serving code in this process; counts zeroed
+    # just before each wave and read just after
+    sizes: list = []
+    real_dispatch = server_mod.dispatch_query_lines
+
+    def counting(lines, **kw):
+        sizes.append(len(lines))
+        return real_dispatch(lines, **kw)
+
+    server_mod.dispatch_query_lines = counting
+    waves, latency = {}, {}
+    n_auto = min(512, len(row_lines))
+    try:
+        def wave(name, fn):
+            zero_launches(sw, v2, v3)
+            native.calls.clear()
+            del sizes[:]
+            t0 = time.perf_counter()
+            n_bad = fn()
+            secs = time.perf_counter() - t0
+            waves[name] = {**read_launches(sw, v2, v3), "native_calls": dict(native.calls),
+                           "mismatches": n_bad, "dispatches": len(sizes),
+                           "mean_chunk": statistics.mean(sizes) if sizes else None,
+                           "seconds": secs}
+
+        def stdin_wave():
+            r, wfd = os.pipe()
+            text = ("\n".join(row_lines[:2048]) + "\n").encode()
+            writer = threading.Thread(target=lambda: (os.write(wfd, text), os.close(wfd)))
+            out = io.StringIO()
+            args = cli_mod.build_parser().parse_args(
+                ["--serve", "--quiet", "--serve-batch", str(w["pipe_batch"])])
+            cli_mod._fold_device_share(args)
+            with os.fdopen(r, "rb", buffering=0) as rf, contextlib.redirect_stdout(out):
+                writer.start()
+                rc = cli_mod._serve_loop(args, cli_mod._ServeLineReader(rf), dev)
+            writer.join(timeout=60)
+            assert rc == 0, f"_serve_loop exited {rc}"
+            return mismatches([out.getvalue().splitlines()], [want_rows[:2048]])
+
+        def tcp_wave(lines, want, closed, backend="torch"):
+            srv = server_mod.TCPQueryServer("127.0.0.1", 0, backend=backend, lenient=False,
+                                            json_out=False, device=dev,
+                                            max_batch=w["tcp_batch"], quiet=True)
+            n = len(lines) // w["clients"]
+            replies, lat, _ = serve_in_process(srv, split(lines, w["clients"], n), closed)
+            if lat:
+                latency[backend] = percentiles(lat)
+            return mismatches(replies, split(want, w["clients"], n))
+
+        wave("stdin_per_row", stdin_wave)
+        wave("tcp_per_row", lambda: tcp_wave(row_lines[:2048], want_rows[:2048], False))
+        wave("tcp_shared_s1", lambda: tcp_wave(shared_lines, want_shared, False))
+        wave("tcp_closed_loop_auto", lambda: tcp_wave(row_lines[:n_auto], want_rows[:n_auto],
+                                                       True, backend="auto"))
+    finally:
+        server_mod.dispatch_query_lines = real_dispatch
+    for name in ("stdin_per_row", "tcp_per_row", "tcp_shared_s1"):
+        wv = waves[name]
+        assert wv["mismatches"] == 0, f"serve_kernels {name}: mismatched replies"
+        kernel = "sweep_batched_shared" if name == "tcp_shared_s1" else "sweep_batched"
+        assert wv[kernel] > 0, f"serve_kernels {name}: {kernel} never launched"
+        assert wv["native_calls"].get("parse_chunk", 0) > 0, f"{name}: the native parser did not run"
+        assert wv["native_calls"].get("search", 0) == 0, f"{name}: a host engine answered"
+
+    # does a thread waiting on a CUDA event let this thread run? The loop's
+    # Python iterations per ms while another thread waits on the event of
+    # ~0.1 s of queued matmuls, against the same loop alone
+    gil = event_wait_gil(torch, dev)
+    emit({"phase": "serve_event_wait_gil", **gil})
+    assert gil["ratio"] > 0.5, f"the event wait holds the GIL: {gil}"
+
+    # one 256-line chunk traced through dispatch and finish
+    chunk = row_lines[:w["tcp_batch"]]
+
+    def one_chunk():
+        outs = server_mod.dispatch_query_lines(chunk, backend="torch", lenient=False,
+                                               json_out=False, device=dev).finish()[0]
+        assert outs == want_rows[:len(chunk)], "the traced chunk's replies differ"
+
+    one_chunk()
+    traced_ms, busy_ms, top = traced_busy(torch, one_chunk)
+    emit({"phase": "serve_kernels", "waves": {k: v for k, v in waves.items()
+                                             if k != "tcp_closed_loop_auto"},
+          "launches_per_wave": "counts zeroed just before each wave, read just after",
+          "traced_chunk": {"lines": len(chunk), "traced_ms": traced_ms,
+                           "device_busy_ms": busy_ms if busy_ms > 0 else None,
+                           "device_busy_share": busy_ms / traced_ms if busy_ms > 0 else None,
+                           "device_top": top}})
+    auto = waves["tcp_closed_loop_auto"]
+    emit({"phase": "serve_auto", "queries": n_auto, "clients": w["clients"],
+          "mismatches": auto["mismatches"], "latency_ms": latency["auto"],
+          "native_search_calls": auto["native_calls"].get("search", 0),
+          "sweep_batched": auto["sweep_batched"],
+          "sweep_batched_shared": auto["sweep_batched_shared"],
+          "dispatches": auto["dispatches"], "mean_chunk": auto["mean_chunk"],
+          "answered_by": ("native" if auto["sweep_batched"] + auto["sweep_batched_shared"] == 0
+                          else "card" if not auto["native_calls"].get("search") else "both")})
+    assert auto["mismatches"] == 0, "serve_auto: mismatched replies"
+
+    # where a chunk's time goes: parse, dispatch, finish, format (median ms)
+    for n in (w["pipe_batch"], w["tcp_batch"], w["clients"]):
+        lines = row_lines[:n]
+        ph = {k: [] for k in ("parse", "dispatch", "finish", "format", "total")}
+        for it in range(7):
+            t = [time.perf_counter()]
+            ents = parse_query_lines(lines)
+            t.append(time.perf_counter())
+            handles, fin = batch.search_batch_async(ents, backend="torch",
+                                                    strict_alphabet=False, device=dev)
+            t.append(time.perf_counter())
+            res = fin()
+            t.append(time.perf_counter())
+            outs = [reply_line(q, r) for q, r in zip(ents, res)]
+            t.append(time.perf_counter())
+            if it >= 2:
+                for k, a, b in zip(list(ph)[:4], t, t[1:]):
+                    ph[k].append((b - a) * 1e3)
+                ph["total"].append((t[-1] - t[0]) * 1e3)
+        assert outs == want_rows[:n], "the timed chunk's replies differ"
+        emit({"phase": "serve_chunk_split_ms", "lines": n, "runs": 5,
+              **{k: statistics.median(v) for k, v in ph.items()}})
+    emit({"phase": "serve_elapsed", "seconds": time.perf_counter() - t_serve})
+    return waves
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -749,6 +1221,7 @@ def main() -> int:
     emit({"phase": "north_star", "winner": list(got), "first_call_s": first_s})
     if got != NORTH_STAR_WINNER:
         return fail(f"north star winner {got} != {NORTH_STAR_WINNER}")
+    ns_result = res
 
     work = ROOT / "psa_torch" / "_build" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -962,6 +1435,16 @@ def main() -> int:
     emit({"phase": "lab_interleaved_ms", "n1": LAB["n1"], "n2": LAB["n2"],
           "iters": LAB["iters"], "rounds": LAB["rounds"], **lab_ms,
           "median": {v: statistics.median(t) for v, t in lab_ms.items()}})
+
+    # 4d. the serving tier: `--serve` through OS pipes and `--serve --listen`
+    # as subprocesses, then the same code in this process, its kernel
+    # launches counted per wave
+    ns_query = Query(np.array(NORTH_STAR["weights"]), s1, s2, NORTH_STAR["is_max"])
+    try:
+        serve_phases(torch, sw, v2, v3, native, batch, Query, wide,
+                     serve_line(ns_query), reply_line(ns_query, ns_result), dev)
+    except AssertionError as e:
+        return fail(str(e))
 
     # 5. times on the card
     timings = {}

@@ -2,8 +2,9 @@
 
 The PyTorch/CUDA counterpart of `psa_tpu`, module for module: the same
 winner tuple (offset, char_offset, substitute, score) and the same output
-bytes for every query, one at a time (models/search.py) or in batches
-(models/batch.search_batch).  The offset sweeps run in CUDA kernels written
+bytes for every query, one at a time (models/search.py), in batches
+(models/batch.search_batch) or served from stdin or TCP clients
+(utils/server.py, `psa-torch --serve`).  The offset sweeps run in CUDA kernels written
 for Hopper (csrc/sweep.cu for one query, csrc/sweep_batched.cu for a
 batch); everything around them is plain torch on the card and numpy on the
 host.  The package imports neither JAX nor `psa_tpu`.

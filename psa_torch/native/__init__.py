@@ -154,6 +154,11 @@ def get_lib():
             _i32p, _i32p, ctypes.c_int32, _i8p, _i8p,
             ctypes.c_int32, ctypes.c_int32, _i32p, _i32p,
         ]
+        lib.psa_parse_chunk.restype = None
+        lib.psa_parse_chunk.argtypes = [
+            ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32, ctypes.c_int32,
+            _i8p, _i32p, _f64p, _i8p, _i32p, _i32p, _i32p, _i32p,
+        ]
         lib.psa_encode_padded.restype = None
         lib.psa_encode_padded.argtypes = [
             ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32,
@@ -318,6 +323,50 @@ def rescore_multi_native(c1b: np.ndarray, c2b: np.ndarray, n2s: np.ndarray,
                           pair_w, diff, sub, int(tables.is_max),
                           qidx, offsets, k, totals, coffs, subs)
     return totals, coffs.astype(np.int64), subs.astype(np.int64)
+
+
+# Line statuses of parse_chunk_native (they must match psa_native.cpp).
+PARSE_OK = 0
+PARSE_BLANK = 1
+PARSE_FEW_TOKENS = 2
+PARSE_SEQ_ORDER = 3
+PARSE_ALPHABET = 4
+PARSE_FALLBACK = 5
+
+
+def parse_chunk_native(buf: bytes, line_off: np.ndarray,
+                       line_len: np.ndarray, check_alpha: bool):
+    """One C pass over a chunk of protocol lines: tokenize, parse the
+    weights, record the Seq1/Seq2 spans (offsets relative to each line's
+    start) and the mode, and validate the alphabet when asked.  Lines the
+    scanner cannot handle bit-identically to Python (non-ASCII, exotic
+    float literals) come back as PARSE_FALLBACK, for the caller to parse
+    with utils/io.parse_input.
+
+    Returns (status, ntokens, weights (n, 4), is_max, s1_off, s1_len,
+    s2_off, s2_len)."""
+    lib = get_lib()
+    n = line_off.shape[0]
+    line_off = np.ascontiguousarray(line_off, np.int64)
+    line_len = np.ascontiguousarray(line_len, np.int32)
+    if line_len.shape != (n,):
+        raise ValueError("line_off and line_len differ in length")
+    if n and not (line_len.min() >= 0 and line_off.min() >= 0
+                  and (line_off + line_len).max() <= len(buf)):
+        raise ValueError("line span outside the buffer")
+    status = np.empty(n, np.int8)
+    ntokens = np.empty(n, np.int32)
+    weights = np.empty((n, 4), np.float64)
+    is_max = np.empty(n, np.int8)
+    s1_off = np.empty(n, np.int32)
+    s1_len = np.empty(n, np.int32)
+    s2_off = np.empty(n, np.int32)
+    s2_len = np.empty(n, np.int32)
+    _count("parse_chunk")
+    lib.psa_parse_chunk(buf, line_off, line_len, n, int(check_alpha),
+                        status, ntokens, weights.reshape(-1), is_max,
+                        s1_off, s1_len, s2_off, s2_len)
+    return status, ntokens, weights, is_max, s1_off, s1_len, s2_off, s2_len
 
 
 def encode_padded_native(buf: bytes, offs: np.ndarray, lens: np.ndarray,

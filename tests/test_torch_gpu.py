@@ -1,11 +1,14 @@
 """Tests of the port that need the card: the CUDA sweep kernels against
-their plain PyTorch versions, the engine, the batch path and the kernel lab
-on the card against the host oracle.
+their plain PyTorch versions, the engine, the batch path, the TCP serving
+tier and the kernel lab on the card against the host oracle.
 They skip without a CUDA device.  This file imports neither JAX nor psa_tpu,
 so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
+
+import socket
+import threading
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from psa_torch.ops import _sweep_v2 as v2
 from psa_torch.ops import _sweep_v3 as v3
 from psa_torch.ops import sweep as sw
 from psa_torch.utils import kernel_lab
+from psa_torch.utils import server
 from psa_torch.utils.generator import random_sequences
 from psa_torch.utils.io import Query
 
@@ -396,3 +400,53 @@ def test_search_batch_on_card_matches_numpy(cuda, shared, monkeypatch):
     assert got == want
     after = (sw.launches_batched, sw.launches_batched_shared)
     assert after[1] - before[1] == 4 if shared else after[0] - before[0] == 4
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_tcp_serve_on_card_matches_native(cuda, shared):
+    """64 queries from 4 clients through the TCP server on the card (its
+    event loop on this thread, the clients on threads): every reply equals
+    the native engine's, and the chunks went through the batched kernel
+    (the shared-Seq1 one when every query has the one Seq1)."""
+    ref = random_sequences(2048, 1, seed=0)[0]
+    lines = []
+    for s in range(64):
+        s1, s2 = random_sequences(2048, 512, seed=s)
+        lines.append(f"1 3 4 2 {ref if shared else s1} {s2} minimum")
+    want = server.process_query_lines(lines, backend="native", lenient=False,
+                                      json_out=False)[0]
+    srv = server.TCPQueryServer("127.0.0.1", 0, backend="torch", lenient=False,
+                                json_out=False, device=cuda, max_batch=16,
+                                quiet=True)
+    got = {}
+
+    def client(c):
+        while srv.bound_addr is None:
+            threading.Event().wait(0.01)
+        with socket.create_connection(srv.bound_addr, timeout=120) as sock:
+            sock.sendall(("\n".join(lines[c::4]) + "\n").encode())
+            sock.shutdown(socket.SHUT_WR)
+            buf = b""
+            while True:
+                d = sock.recv(1 << 16)
+                if not d:
+                    break
+                buf += d
+        got[c] = buf.decode().splitlines()
+        if len(got) == 4:
+            srv.request_stop()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    before = (sw.launches_batched, sw.launches_batched_shared, native.calls["search"])
+    for t in threads:
+        t.start()
+    assert srv.run() == 0
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for c in range(4):
+        assert got[c] == want[c::4]
+    per_row = sw.launches_batched - before[0]
+    shared_n = sw.launches_batched_shared - before[1]
+    assert (shared_n if shared else per_row) > 0
+    assert native.calls["search"] == before[2]

@@ -29,6 +29,17 @@ just after:
   with the launches counted per wave, `--backend auto` in a closed loop,
   one traced 256-line chunk and a chunk's parse/dispatch/finish/format
   split;
+- the sharded and multi-process paths (psa_torch/parallel): the north star
+  through `search_sharded` on meshes of 1, 2, 4 and 8 shards of the one
+  card, `search_sharded_2d` at (1,2), (2,2), (1,4) and (2,4), and
+  `search_sharded_auto`, each with one `sweep` launch per shard; all-'A'
+  ties at 200,000 x 2,048 taking the full-stats fallback; 600,000 x 250,000
+  through `torch` and a 4-shard mesh against the native engine; the batch
+  workload sharded over 4 (one batched launch per shard); two ranks on the
+  card joined by Gloo (started directly, and through `psa_torch.utils.
+  launcher -np 2` on the north-star file, the mixed --batch file, --batch
+  --sharded and a bad input), and `psa-torch --sharded`, each output byte-
+  equal to one process's;
 - the host backends on the native host library (psa_torch/native, built
   with g++ at first use; the smoke fails unless it builds, self-tests and
   answers host selection): the north-star query through `torch`, `native`,
@@ -366,8 +377,9 @@ def batched_kernel_checks(torch, sw, code, dev):
 # `sweep` against its plain version: the five shapes of earlier runs,
 # 1M x 2048, and the even split's edges (ranges of several whole tiles at
 # l2p = 32, fewer units than workers, noff = 1, a whole tile whose last step
-# is ragged, one tile split over ~90 workers); (n1, n2, hyphen_p, other_p,
-# PAD_CODE inside the sequences)
+# is ragged, one tile split over ~90 workers, and Seq2 past 65,536 positions
+# with 512 offsets); (n1, n2, hyphen_p, other_p, PAD_CODE inside the
+# sequences)
 SWEEP_CASES = [("ragged", 1000, 137, 0.05, 0.0, False),
                ("bench", 131072, 8192, 0.0, 0.0, False),
                ("north_star", 100_000, 10_000, 0.0, 0.0, False),
@@ -377,7 +389,8 @@ SWEEP_CASES = [("ragged", 1000, 137, 0.05, 0.0, False),
                ("ranges_of_whole_tiles", 2_000_000, 20, 0.05, 0.05, True),
                ("noff_1", 300, 300, 0.05, 0.05, True),
                ("whole_tiles_ragged_step", 2_000_000, 1500, 0.05, 0.05, True),
-               ("tile_over_90_workers", 40_000, 30_000, 0.05, 0.05, True)]
+               ("tile_over_90_workers", 40_000, 30_000, 0.05, 0.05, True),
+               ("seq2_past_65536", 70_511, 70_000, 0.05, 0.05, True)]
 
 
 def split_plan(sw, noff_pad: int, l2p: int):
@@ -1140,6 +1153,245 @@ def serve_phases(torch, sw, v2, v3, native, batch, Query, wide, ns_line, ns_repl
     return waves
 
 
+# Long Seq2 end to end (the JAX package's long-Seq2 check, README.md's
+# 600k x 250k): random_sequences(600_000, 250_000, seed=2), weights 1 3 4 2,
+# minimum; through `torch`, through `search_sharded_auto` on a mesh of 4
+# shards of the one card, and through the native engine once.
+LONG_SEQ2 = dict(n1=600_000, n2=250_000, seed=2, shards=4)
+# The mesh shapes the north star runs on (every shard on cuda:0): 1-D shard
+# counts, 2-D (n_op, n_ch) grids, and search_sharded_auto over 4 shards.
+SHARDED_1D = (1, 2, 4, 8)
+SHARDED_2D = ((1, 2), (2, 2), (1, 4), (2, 4))
+# All-'A' massive ties: every offset ties exactly, so no shard's top k can
+# certify the winner and the full-stats fallback must run.
+TIES = dict(n1=200_000, n2=2048, shards=4)
+
+
+def winner(r):
+    return (r.offset, r.char_offset, r.sub_code, r.score)
+
+
+def same_bits(a, b) -> bool:
+    return winner(a)[:3] == winner(b)[:3] and a.score.hex() == b.score.hex()
+
+
+def sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, eng_native,
+                   tables, s1, s2, encode, random_sequences, bq, bres):
+    """The sharded paths (psa_torch/parallel/mesh.py, search_batch(mesh=))
+    in this process, every shard on cuda:0; the launch counts and the
+    fallback count are zeroed just before each path and read just after.
+    Every phase prints one JSON line; a wrong winner or count raises
+    AssertionError."""
+    from psa_torch.core.tables import device_tables_cached
+
+    cuda0 = torch.device("cuda", 0)
+    c1, c2 = encode(s1), encode(s2)
+    runs = []
+    cases = ([("1d", n, n, lambda n=n: mesh_mod.search_sharded(
+                  c1, c2, tables, [cuda0] * n)) for n in SHARDED_1D]
+             + [("2d", list(s), s[0] * s[1], lambda s=s: mesh_mod.search_sharded_2d(
+                  c1, c2, tables, mesh_mod.make_mesh_2d([cuda0] * (s[0] * s[1]), *s)))
+                for s in SHARDED_2D]
+             + [("auto", 4, 4, lambda: mesh_mod.search_sharded_auto(
+                  c1, c2, tables, [cuda0] * 4))])
+    for kind, shape, shards, fn in cases:
+        zero_launches(sw, v2, v3)
+        mesh_mod.fallbacks = 0
+        got = winner(fn())
+        launches = read_launches(sw, v2, v3)
+        fell = mesh_mod.fallbacks
+        if got != NORTH_STAR_WINNER or launches["sweep"] != shards or fell:
+            raise AssertionError(f"north star sharded {kind} {shape}: {got}, "
+                                 f"{launches['sweep']} sweep launches, "
+                                 f"{fell} fallbacks")
+        med, lo, hi = wall_ms(fn, runs=5)
+        runs.append({"mesh": kind, "shape": shape, "shards": shards,
+                     "winner": list(got), "sweep_launches": launches["sweep"],
+                     "ms": med, "min": lo, "max": hi})
+    med, lo, hi = wall_ms(lambda: eng.search_codes(c1, c2), runs=5)
+    emit({"phase": "sharded", "query": "north_star", "runs": 5, "meshes": runs,
+          "auto_shape": list(mesh_mod.mesh_shape(4, c1.shape[0] - c2.shape[0] + 1,
+                                                 c2.shape[0])),
+          "unsharded_engine_ms": med, "unsharded_min": lo, "unsharded_max": hi,
+          "note": "shards share one card: overhead per shard, not scaling"})
+
+    z1 = np.zeros(TIES["n1"], np.int32)
+    z2 = np.zeros(TIES["n2"], np.int32)
+    want = eng_native.search_codes(z1, z2)
+    for kind, fn in (("1d", lambda: mesh_mod.search_sharded(
+                         z1, z2, tables, [cuda0] * TIES["shards"])),
+                     ("2d", lambda: mesh_mod.search_sharded_2d(
+                         z1, z2, tables, mesh_mod.make_mesh_2d([cuda0] * 4, 2, 2)))):
+        zero_launches(sw, v2, v3)
+        mesh_mod.fallbacks = 0
+        t0 = time.perf_counter()
+        got = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches(sw, v2, v3)
+        emit({"phase": "sharded_fallback", "mesh": kind, "n1": TIES["n1"],
+              "n2": TIES["n2"], "shards": 4, "winner": list(winner(got)),
+              "native": list(winner(want)), "fallbacks": mesh_mod.fallbacks,
+              "sweep_launches": launches["sweep"], "ms": ms})
+        if not same_bits(got, want) or mesh_mod.fallbacks != 1 \
+                or launches["sweep"] != 8:
+            raise AssertionError(f"all-'A' ties through the {kind} mesh: "
+                                 f"{winner(got)} vs native {winner(want)}, "
+                                 f"{mesh_mod.fallbacks} fallbacks")
+
+    s1l, s2l = random_sequences(LONG_SEQ2["n1"], LONG_SEQ2["n2"], seed=LONG_SEQ2["seed"])
+    c1l, c2l = encode(s1l), encode(s2l)
+    noff = c1l.shape[0] - c2l.shape[0] + 1
+    mesh4 = [cuda0] * LONG_SEQ2["shards"]
+    shape = mesh_mod.mesh_shape(len(mesh4), noff, c2l.shape[0])
+    long = {}
+    for tag, fn, shards in (
+            ("torch", lambda: eng.search_codes(c1l, c2l), 1),
+            ("sharded_auto", lambda: mesh_mod.search_sharded_auto(c1l, c2l, tables, mesh4),
+             LONG_SEQ2["shards"])):
+        zero_launches(sw, v2, v3)
+        mesh_mod.fallbacks = 0
+        t0 = time.perf_counter()
+        r = fn()
+        first = (time.perf_counter() - t0) * 1e3
+        launches = read_launches(sw, v2, v3)
+        fell = mesh_mod.fallbacks
+        med, lo, hi = wall_ms(fn, runs=3, warm=0)
+        long[tag] = dict(result=r, first_ms=first, ms=med, min=lo, max=hi,
+                         sweep_launches=launches["sweep"], fallbacks=fell)
+        if launches["sweep"] < shards:
+            raise AssertionError(f"600k x 250k through {tag} launched sweep "
+                                 f"{launches['sweep']} times")
+    t0 = time.perf_counter()
+    want = eng_native.search_codes(c1l, c2l)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    _, _, l2p, l1k = sw.plan_shapes(c1l.shape[0], c2l.shape[0])
+    dtabs = device_tables_cached(tables, cuda0)
+    packed, _ = batch.run_exact(sw.upload_codes(c1l, l1k, cuda0),
+                                sw.upload_codes(c2l, l2p, cuda0), noff, dtabs)
+    near = int(batch.unpack_epilogue_outputs(packed.cpu().numpy(), batch.TOPK)[2][0])
+    emit({"phase": "long_seq2", "n1": LONG_SEQ2["n1"], "n2": LONG_SEQ2["n2"],
+          "pair_evals": float(noff) * LONG_SEQ2["n2"],
+          "native": list(winner(want)), "native_ms": native_ms,
+          "near": near, "near_gt_k": near > batch.TOPK,
+          "eps_f32": dtabs.eps(l2p), "auto_shape": list(shape),
+          **{tag: {"winner": list(winner(v["result"])),
+                   "equal_bits": same_bits(v["result"], want),
+                   **{k: v[k] for k in ("first_ms", "ms", "min", "max",
+                                        "sweep_launches", "fallbacks")}}
+             for tag, v in long.items()}})
+    for tag, v in long.items():
+        if not same_bits(v["result"], want):
+            raise AssertionError(f"600k x 250k through {tag} differs from native")
+
+    for name, qs in bq.items():
+        zero_launches(sw, v2, v3)
+        got = batch.search_batch(qs, mesh=[cuda0] * 4)
+        launches = read_launches(sw, v2, v3)
+        kernel = "sweep_batched_shared" if name == "shared_s1" else "sweep_batched"
+        med, lo, hi = wall_ms(lambda: batch.search_batch(qs, mesh=[cuda0] * 4), runs=5)
+        umed, ulo, uhi = wall_ms(lambda: batch.search_batch(qs), runs=5)
+        emit({"phase": "sharded_batch", "workload": name, "queries": len(qs),
+              "mesh": 4, "equal_unsharded": got == bres[name], **launches,
+              "ms": med, "min": lo, "max": hi, "unsharded_ms": umed,
+              "unsharded_min": ulo, "unsharded_max": uhi, "runs": 5})
+        if got != bres[name] or launches[kernel] != 4:
+            raise AssertionError(f"sharded batch {name}: equal {got == bres[name]}, "
+                                 f"{launches[kernel]} {kernel} launches")
+
+
+DIST_CMD = [sys.executable, "-m", "psa_torch.utils.launcher", "-np", "2"]
+
+
+def run_ranks(cmds, timeout: int):
+    """Start every command at once, then wait for each under its own
+    timeout -> [(rc, stdout, stderr, seconds)]."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            out.append((p.returncode, o, e, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def distributed_phases(inp: Path, want_bytes: str, cases_txt: Path, want_files: dict,
+                       work: Path):
+    """Two ranks on cuda:0 joined by Gloo: once started directly (each
+    rank's device and the group's backend read from its stderr), then
+    through `python -m psa_torch.utils.launcher -np 2` on the north-star
+    file, the mixed --batch file, --batch --sharded, and a bad input; each
+    output byte-equal to one process's.  Then `psa-torch --sharded` on the
+    north-star file.  Raises AssertionError on a difference."""
+    from psa_torch.utils.launcher import _free_port
+
+    out = work / "dist_direct.txt"
+    out.unlink(missing_ok=True)
+    base = [sys.executable, "-m", "psa_torch.utils.cli", "--distributed",
+            "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", "2",
+            "-o", str(out)]
+    ranks = run_ranks([base + ["--process-id", "0", str(inp)],
+                       base + ["--process-id", "1", str(work / "never-read.txt")]],
+                      timeout=300)
+    lines = [next((ln for ln in e.splitlines() if ln.startswith("[dist]")), None)
+             for _, _, e, _ in ranks]
+    ok = ([rc for rc, *_ in ranks] == [0, 0] and out.is_file()
+          and out.read_text() == want_bytes)
+    trailer = [ln for ln in ranks[0][1].splitlines() if ln.startswith("total time:")]
+    emit({"phase": "distributed", "run": "direct_north_star",
+          "rcs": [rc for rc, *_ in ranks], "rank_lines": lines,
+          "rank0_flow_s": float(trailer[0].split()[-1]) if trailer else None,
+          "bytes_equal": ok, "seconds": ranks[-1][3],
+          "stderr_tail": [e[-300:] for _, _, e, _ in ranks]})
+    if not ok or None in lines:
+        raise AssertionError("two ranks on the north star differ from one process")
+
+    runs = [("north_star", [str(inp), "-o", str(work / "dist_ns.txt")], 0),
+            ("batch", [str(cases_txt), "--batch", "--lenient", "-o",
+                       str(work / "dist_batch")], 1),
+            ("batch_sharded", [str(cases_txt), "--batch", "--sharded", "--lenient",
+                               "-o", str(work / "dist_batch_sharded")], 1),
+            ("bad_input", [str(work / "missing.txt"), "-o",
+                           str(work / "dist_bad.txt")], 2)]
+    for name, argv, want_rc in runs:
+        target = Path(argv[argv.index("-o") + 1])
+        if target.is_dir():
+            shutil.rmtree(target)
+        target.unlink(missing_ok=True)
+        (rc, o, e, secs), = run_ranks([DIST_CMD + argv + ["--quiet"]], timeout=600)
+        if name == "north_star":
+            equal = target.is_file() and target.read_text() == want_bytes
+        elif name == "bad_input":
+            equal = not target.exists() and "cannot open input file" in e
+        else:
+            got = {f.name: f.read_bytes() for f in sorted(target.glob("out_*.txt"))}
+            equal = got == want_files
+        emit({"phase": "distributed", "run": f"launcher_{name}", "rc": rc,
+              "want_rc": want_rc, "bytes_equal": equal, "seconds": secs,
+              "stderr_tail": e[-400:]})
+        if rc != want_rc or not equal:
+            raise AssertionError(f"psa-torch-dist -np 2 {name}: rc {rc}, "
+                                 f"equal {equal}")
+
+    out = work / "cli_sharded.txt"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "psa_torch.utils.cli", str(inp),
+                        "--sharded", "-o", str(out), "--quiet"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    equal = p.returncode == 0 and out.is_file() and out.read_text() == want_bytes
+    emit({"phase": "cli_sharded", "rc": p.returncode, "bytes_equal": equal,
+          "seconds": time.perf_counter() - t0, "stderr_tail": p.stderr[-300:]})
+    if not equal:
+        raise AssertionError("psa-torch --sharded differs from the unsharded CLI")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "psa_torch" / "csrc" / "sweep.cu").is_file():
@@ -1445,6 +1697,21 @@ def main() -> int:
                      serve_line(ns_query), reply_line(ns_query, ns_result), dev)
     except AssertionError as e:
         return fail(str(e))
+
+    # 4e. the sharded and multi-process paths: the north star on meshes of
+    # 1-8 shards of the one card (1-D and 2-D), the all-'A' fallback, 600k x
+    # 250k through `torch` and a 4-shard mesh against native, the batch
+    # workload sharded over 4, then two ranks on the card and --sharded
+    from psa_torch.parallel import mesh as mesh_mod
+
+    t_par = time.perf_counter()
+    try:
+        sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, ns_engines["native"],
+                       eng.tables, s1, s2, encode, random_sequences, bq, bres)
+        distributed_phases(inp, want_bytes, cases_txt, fn, work)
+    except AssertionError as e:
+        return fail(str(e))
+    emit({"phase": "parallel_elapsed", "seconds": time.perf_counter() - t_par})
 
     # 5. times on the card
     timings = {}

@@ -374,3 +374,19 @@ def device_tables(tables: ScoringTables, device) -> DeviceTables:
         code=torch.from_numpy(np.ascontiguousarray(tables.code)).to(device),
         w32=torch.from_numpy(tables.w_signed.astype(np.float32)).to(device),
         diff32=torch.from_numpy(diff32).to(device))
+
+
+_DEVICE_TABLES_CACHE: dict = {}
+
+
+def device_tables_cached(tables: ScoringTables, device) -> DeviceTables:
+    """Memoized `device_tables` per (weights, mode, device): the sharded
+    paths read each shard's tables on that shard's device, call after
+    call."""
+    key = (tuple(tables.weights.tolist()), tables.is_max, str(device))
+    t = _DEVICE_TABLES_CACHE.get(key)
+    if t is None:
+        if len(_DEVICE_TABLES_CACHE) >= 64:
+            _DEVICE_TABLES_CACHE.clear()
+        t = _DEVICE_TABLES_CACHE[key] = device_tables(tables, device)
+    return t

@@ -27,6 +27,12 @@ failed build, launch or fetch raises).
 `search_batch_async` is the serving tier's half (utils/server.py): it
 dispatches every device bucket and returns (handles, finish), so a serve
 loop can parse and dispatch the next chunk while this one's fetches land.
+
+With `mesh=` (a list of devices, parallel/mesh.make_mesh) each microbatch's
+queries split into contiguous blocks, one per mesh device, each running
+the same upload, launch, epilogue and fetch on its device
+(`batched_search_exact_sharded`); queries are independent, so nothing
+crosses devices.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    build_tables_cached, device_tables,
-                                   f32_band_epsilon)
+                                   device_tables_cached, f32_band_epsilon)
 from psa_torch.models.search import (AlignmentSearchEngine, pair_evals,
                                      resolve_device)
 from psa_torch.ops.common import keyed_f32_totals_ops
@@ -58,7 +64,8 @@ __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
            "pack_epilogue_outputs", "unpack_epilogue_outputs",
            "run_exact", "search_exact", "fused_stats5_from_codes",
            "fused_stats5_from_codes_shared", "batched_search_exact",
-           "batched_search_exact_async", "search_batch",
+           "batched_search_exact_async", "batched_search_exact_sharded",
+           "batched_search_exact_sharded_async", "search_batch",
            "search_batch_async"]
 
 TOPK = 32
@@ -275,20 +282,66 @@ def _dispatch_all_spans(spans, dispatch, finish_one, results):
     return [dev for _, dev in pending], finish
 
 
-def _make_finisher(results: list, c1b, c2b, noffs, n2s, dtabs: DeviceTables,
-                   k: int):
-    """Finish stage: wait for one microbatch's fetch, unpack it and run the
-    exact host selection into `results`."""
+def _split_span(s: int, e: int, n: int) -> list:
+    """Contiguous blocks of [s, e) for n mesh devices, ceil((e - s) / n)
+    queries each and the last ones shorter (or empty): a launch takes any
+    B, so no dummy rows fill them."""
+    per = -(-(e - s) // n)
+    return [(min(s + d * per, e), min(s + (d + 1) * per, e))
+            for d in range(n)]
 
-    def finish(span, fetch: Fetch):
-        s, e = span
-        topi, stats_k, near, best = unpack_epilogue_outputs(fetch.wait(), k)
-        stats_k = np.swapaxes(stats_k, 1, 2)   # (n, 5, k) -> (n, k, 5)
-        results[s:e] = _host_select(c1b[s:e], c2b[s:e], noffs[s:e],
-                                    n2s[s:e], dtabs, topi, stats_k, near,
-                                    best, k)
 
-    return finish
+def _mesh_async(c1b, c2b, noffs, n2s, mesh_tabs: list, k: int, fused: bool,
+                micro_b: int | None, shared_s1: bool | None):
+    """The body of `batched_search_exact_async` and its sharded form:
+    microbatches of micro_b x len(mesh_tabs) queries, each split into one
+    contiguous block per mesh entry (`_split_span`), every block uploaded
+    to its entry's device, swept, epilogued and fetched from there.
+    mesh_tabs: one DeviceTables per mesh entry, on that entry's device."""
+    c1b = np.asarray(c1b, np.uint8)
+    c2b = np.asarray(c2b, np.uint8)
+    noffs = np.asarray(noffs, np.int32)
+    n2s = np.asarray(n2s, np.int32)
+    b_n = c1b.shape[0]
+    mb = int(micro_b) if micro_b else CONFIG.micro_batch
+    if shared_s1 is None:
+        shared_s1 = bool((c1b == c1b[:1]).all())
+    shared_s1 = bool(shared_s1 and fused and b_n > 1)
+    c1_shared: dict = {}
+    if shared_s1:
+        for dt in mesh_tabs:
+            dev = dt.code.device
+            if dev not in c1_shared:
+                c1_shared[dev] = upload_rows(c1b[0], dev)
+    results: list = [None] * b_n
+
+    def dispatch_block(s: int, e: int, dtabs: DeviceTables):
+        device = dtabs.code.device
+        c1h, c1d = (c1_shared[device] if shared_s1
+                    else upload_rows(c1b[s:e], device))
+        c2h, c2d = upload_rows(c2b[s:e], device)
+        nh, nd = upload_rows(noffs[s:e], device)
+        packed = run_exact_batch(c1d, c2d, nd, dtabs, k, shared_s1, fused)
+        return s, e, dtabs, start_fetch(packed, (c1h, c1d, c2h, c2d, nh, nd))
+
+    def dispatch(s: int, e: int) -> list:
+        return [dispatch_block(bs, be, dt) for (bs, be), dt
+                in zip(_split_span(s, e, len(mesh_tabs)), mesh_tabs)
+                if be > bs]
+
+    def finish_one(span, blocks: list):
+        for s, e, dtabs, fetch in blocks:
+            topi, stats_k, near, best = unpack_epilogue_outputs(fetch.wait(),
+                                                                k)
+            stats_k = np.swapaxes(stats_k, 1, 2)   # (n, 5, k) -> (n, k, 5)
+            results[s:e] = _host_select(c1b[s:e], c2b[s:e], noffs[s:e],
+                                        n2s[s:e], dtabs, topi, stats_k,
+                                        near, best, k)
+
+    pending, finish = _dispatch_all_spans(
+        microbatch_spans(b_n, mb * len(mesh_tabs)), dispatch, finish_one,
+        results)
+    return [blk[3] for blocks in pending for blk in blocks], finish
 
 
 def batched_search_exact_async(c1b, c2b, noffs, n2s, dtabs: DeviceTables,
@@ -296,34 +349,43 @@ def batched_search_exact_async(c1b, c2b, noffs, n2s, dtabs: DeviceTables,
                                micro_b: int | None = None,
                                shared_s1: bool | None = None):
     """Async `batched_search_exact`: the first microbatches dispatch at
-    once and (handles, finish) returns — see `_dispatch_all_spans`.
+    once and (handles, finish) returns — see `_dispatch_all_spans`;
+    `handles` are the in-flight Fetches.
 
     shared_s1: the queries share one Seq1 (row 0 of c1b), which is uploaded
     once and swept by the shared-Seq1 kernel.  None = detect it by row
     equality; results are bit-identical either way."""
-    c1b = np.asarray(c1b, np.uint8)
-    c2b = np.asarray(c2b, np.uint8)
-    noffs = np.asarray(noffs, np.int32)
-    n2s = np.asarray(n2s, np.int32)
-    b_n = c1b.shape[0]
-    mb = int(micro_b) if micro_b else CONFIG.micro_batch
-    device = dtabs.code.device
-    if shared_s1 is None:
-        shared_s1 = bool((c1b == c1b[:1]).all())
-    shared_s1 = bool(shared_s1 and fused and b_n > 1)
-    c1_shared = upload_rows(c1b[0], device) if shared_s1 else None
-    results: list = [None] * b_n
+    return _mesh_async(c1b, c2b, noffs, n2s, [dtabs], k, fused, micro_b,
+                       shared_s1)
 
-    def dispatch(s: int, e: int) -> Fetch:
-        c1h, c1d = c1_shared if shared_s1 else upload_rows(c1b[s:e], device)
-        c2h, c2d = upload_rows(c2b[s:e], device)
-        nh, nd = upload_rows(noffs[s:e], device)
-        packed = run_exact_batch(c1d, c2d, nd, dtabs, k, shared_s1, fused)
-        return start_fetch(packed, (c1h, c1d, c2h, c2d, nh, nd))
 
-    return _dispatch_all_spans(
-        microbatch_spans(b_n, mb), dispatch,
-        _make_finisher(results, c1b, c2b, noffs, n2s, dtabs, k), results)
+def batched_search_exact_sharded_async(c1b, c2b, noffs, n2s,
+                                       tables: ScoringTables, mesh: list,
+                                       k: int = TOPK,
+                                       micro_b: int | None = None,
+                                       shared_s1: bool | None = None):
+    """Async `batched_search_exact_sharded` -> (handles, finish)."""
+    from psa_torch.parallel.mesh import make_mesh
+
+    return _mesh_async(c1b, c2b, noffs, n2s,
+                       [device_tables_cached(tables, d)
+                        for d in make_mesh(mesh)],
+                       k, True, micro_b, shared_s1)
+
+
+def batched_search_exact_sharded(c1b, c2b, noffs, n2s,
+                                 tables: ScoringTables, mesh: list,
+                                 k: int = TOPK, micro_b: int | None = None,
+                                 shared_s1: bool | None = None) -> list:
+    """`batched_search_exact` with the query axis sharded over a 1-D mesh
+    (parallel/mesh.make_mesh): microbatches of micro_b x len(mesh)
+    queries, each split into one contiguous block per mesh device, which
+    uploads, sweeps (one batched launch), runs the epilogue and fetches on
+    that device.  Queries are independent, so nothing crosses devices;
+    results come back in input order."""
+    return batched_search_exact_sharded_async(c1b, c2b, noffs, n2s, tables,
+                                              mesh, k, micro_b,
+                                              shared_s1)[1]()
 
 
 def batched_search_exact(c1b, c2b, noffs, n2s, dtabs: DeviceTables,
@@ -446,7 +508,8 @@ _BATCH_BACKENDS = ("torch", "numpy", "native", "auto")
 
 
 def search_batch(queries, backend: str = "torch",
-                 strict_alphabet: bool = True, device=None) -> list:
+                 strict_alphabet: bool = True, device=None,
+                 mesh: list | None = None) -> list:
     """Mixed-size multi-query search with bucketed padding.
 
     Queries (utils.io.Query) are grouped by (weights, mode, l1k, l2p) of
@@ -458,14 +521,18 @@ def search_batch(queries, backend: str = "torch",
     bucket on that host engine instead; "auto" sends a bucket to the device
     when its pair-evals reach `CONFIG.auto_threshold` and to the native
     engine below it (to the device when the library does not build).
+    mesh: a 1-D device mesh (parallel/mesh.make_mesh); device buckets then
+    shard their queries over it (`batched_search_exact_sharded`) in place
+    of `device`, and host-engine buckets ignore it.
     Results come back in input order; None marks a query with no legal
     mutation."""
     return _search_batch_impl(queries, backend, strict_alphabet, device,
-                              defer=False)[1]()
+                              mesh, defer=False)[1]()
 
 
 def search_batch_async(queries, backend: str = "torch",
-                       strict_alphabet: bool = True, device=None):
+                       strict_alphabet: bool = True, device=None,
+                       mesh: list | None = None):
     """Deferred `search_batch`: validates, buckets and dispatches every
     device bucket (uploads, kernels, epilogues and fetches enqueued through
     `batched_search_exact_async`), then returns (handles, finish) at once.
@@ -473,13 +540,14 @@ def search_batch_async(queries, backend: str = "torch",
     the exact host selection and the host-engine buckets (`numpy`,
     `native`, and `auto` below `auto_threshold`), and returns the results
     in input order (None = no legal mutation).  A device failure at
-    dispatch or at fetch raises; no host engine answers in its place."""
+    dispatch or at fetch raises; no host engine answers in its place.
+    `mesh` as in `search_batch`."""
     return _search_batch_impl(queries, backend, strict_alphabet, device,
-                              defer=True)
+                              mesh, defer=True)
 
 
 def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
-                       defer: bool):
+                       mesh, defer: bool):
     """Shared body of search_batch and search_batch_async -> (handles,
     finish)."""
     if backend == "hybrid":
@@ -493,7 +561,14 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
                          f"{_BATCH_BACKENDS}")
     if backend == "native":
         native.get_lib()            # raises when the library cannot be built
-    dev = resolve_device(device) if backend in ("torch", "auto") else None
+    dev = None
+    if backend in ("torch", "auto"):
+        if mesh is not None:
+            from psa_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(mesh)
+        else:
+            dev = resolve_device(device)
     results: list = [None] * len(queries)
     if strict_alphabet and queries:
         ok = (validate_batch([q.seq1 for q in queries])
@@ -524,7 +599,7 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
             else:
                 fin_host()
             continue
-        dtabs = device_tables(build_tables_cached(np.asarray(w), is_max), dev)
+        tables = build_tables_cached(np.asarray(w), is_max)
         noffs = np.array([len(queries[i].seq1) - len(queries[i].seq2) + 1
                           for i in idxs], np.int32)
         _, l1k = plan_bucket(noffs, l2p)
@@ -535,14 +610,20 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
         s1_0 = queries[idxs[0]].seq1
         shared_s1 = (len(idxs) > 1
                      and all(queries[i].seq1 == s1_0 for i in idxs[1:]))
+        if mesh is not None:
+            run_sync, run_async = (batched_search_exact_sharded,
+                                   batched_search_exact_sharded_async)
+            on = (tables, mesh)
+        else:
+            run_sync, run_async = (batched_search_exact,
+                                   batched_search_exact_async)
+            on = (device_tables(tables, dev),)
         if not defer:
-            rs = batched_search_exact(c1b, c2b, noffs, n2s, dtabs,
-                                      shared_s1=shared_s1)
+            rs = run_sync(c1b, c2b, noffs, n2s, *on, shared_s1=shared_s1)
             for i, r in zip(idxs, rs):
                 results[i] = r
             continue
-        h, fin = batched_search_exact_async(c1b, c2b, noffs, n2s, dtabs,
-                                            shared_s1=shared_s1)
+        h, fin = run_async(c1b, c2b, noffs, n2s, *on, shared_s1=shared_s1)
         handles.extend(h)
 
         def fin_device(fin=fin, idxs=idxs):

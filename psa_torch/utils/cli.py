@@ -5,7 +5,11 @@ cpu_funcs.c:25-121): read input, search, write output, print the wall
 time.  `--batch` runs every case record of the input file through the
 batch path, one output file each (`-o` names the directory).  `--serve`
 answers query lines from stdin, or from TCP clients with `--listen`,
-through the same batch path (utils/server.py).  Same output
+through the same batch path (utils/server.py).  `--sharded` splits a
+query's offsets (or, with `--batch` and `--serve`, each microbatch's
+queries) over every card (parallel/mesh.py); `--distributed` runs one rank
+of a Gloo process group (parallel/multihost.py; `psa-torch-dist -np N`
+starts N of them).  Same output
 bytes and exit codes as the JAX package's `psa`: 0 found, 1 no mutation
 (the unmodified Seq2 is written with offset -1; in batch mode, any case
 without one), 2 bad usage or input, 141 when a serve client closes the
@@ -107,6 +111,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "file is still written (with --serve: one object "
                         "per reply)")
     p.add_argument("--quiet", action="store_true", help="suppress progress prints")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard the offset axis over every local card (the "
+                        "mesh shape chosen per query; PSA_MESH_SHAPE="
+                        "n_op,n_ch overrides); with --batch or --serve, "
+                        "shard each microbatch's queries over them; "
+                        "--device cpu is a mesh of one CPU device")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process run (the reference's `make run` = "
+                        "mpiexec, Makefile:18-22): join a Gloo process "
+                        "group, process 0 reads and writes the files, the "
+                        "query broadcasts and its offsets shard over every "
+                        "rank (with --batch, the cases split over the "
+                        "ranks). Launch via psa-torch-dist, torchrun, or "
+                        "one process per rank with the three flags below.")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="the process group's rendezvous address (rank 0 "
+                        "listens there)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count for --distributed")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank for --distributed")
     return p
 
 
@@ -120,7 +145,7 @@ def _fold_device_share(args) -> str | None:
         elif 0 <= args.device_share <= 100:
             if args.backend not in (None, "auto", "hybrid"):
                 return f"--device-share conflicts with --backend {args.backend}"
-            if args.batch or args.serve:
+            if args.batch or args.serve or args.sharded or args.distributed:
                 return ("--device-share applies to single-query searches only "
                         "(the reference splits one query, cpu_funcs.c:144-150)")
             args.backend = "hybrid"
@@ -128,7 +153,8 @@ def _fold_device_share(args) -> str | None:
             return "--device-share must be in [0, 100] or -100"
     if args.backend is None:
         args.backend = "torch"
-    if args.backend == "hybrid" and (args.batch or args.serve):
+    if args.backend == "hybrid" and (args.batch or args.serve or args.sharded
+                                     or args.distributed):
         return "the hybrid backend applies to single-query searches only"
     return None
 
@@ -139,6 +165,8 @@ def main(argv: list[str] | None = None) -> int:
     if err is not None:
         print(f"error: {err}", file=sys.stderr)
         return 2
+    if args.distributed:
+        return _main_distributed(args)
     if args.serve:
         return _main_serve(args)
     if args.batch:
@@ -170,19 +198,37 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: bad input file `{args.input}`: {e}", file=sys.stderr)
         return 2
     try:
-        # device None = the card, which raises when there is none
-        engine = AlignmentSearchEngine(
-            query.weights, query.is_max, backend=args.backend,
-            strict_alphabet=not args.lenient,
-            device=None if args.device == "cuda" else args.device,
-            nthreads=args.threads, device_share=args.device_share)
+        if args.sharded:
+            # the mesh of every card (or of the one CPU device), resolved
+            # first: without a card this exits 2
+            mesh = _mesh(args)
+            _warn_unsharded_backend(args.backend)
+        else:
+            # device None = the card, which raises when there is none
+            engine = AlignmentSearchEngine(
+                query.weights, query.is_max, backend=args.backend,
+                strict_alphabet=not args.lenient,
+                device=None if args.device == "cuda" else args.device,
+                nthreads=args.threads, device_share=args.device_share)
     except (RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
     t0 = time.perf_counter()
     try:
-        res = engine.search(query.seq1, query.seq2)
+        if args.sharded:
+            from psa_torch.core.alphabet import encode, ensure_valid
+            from psa_torch.core.tables import build_tables_cached
+            from psa_torch.parallel.mesh import search_sharded_auto
+
+            ensure_valid(query.seq1, query.seq2, args.lenient)
+            # the mesh shape chosen per query; PSA_MESH_SHAPE overrides
+            res = search_sharded_auto(
+                encode(query.seq1), encode(query.seq2),
+                build_tables_cached(np.asarray(query.weights, np.float64),
+                                    query.is_max), mesh)
+        else:
+            res = engine.search(query.seq1, query.seq2)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -261,6 +307,7 @@ def _main_batch(args) -> int:
 
     try:
         device = _batch_device(args)
+        mesh = _batch_mesh(args)
     except (RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -269,7 +316,7 @@ def _main_batch(args) -> int:
     try:
         results = search_batch(cases, backend=args.backend,
                                strict_alphabet=not args.lenient,
-                               device=device)
+                               device=device, mesh=mesh)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -316,6 +363,102 @@ def _batch_device(args):
     from psa_torch.models.search import resolve_device
 
     return resolve_device(None if args.device == "cuda" else args.device)
+
+
+def _mesh(args) -> list:
+    """--sharded's mesh: every card (raises without one), or the one CPU
+    device with --device cpu."""
+    from psa_torch.parallel.mesh import make_mesh
+
+    return make_mesh(["cpu"] if args.device == "cpu" else None)
+
+
+def _batch_mesh(args):
+    """--sharded in batch and serve mode: the mesh the device buckets shard
+    their queries over (models/batch.batched_search_exact_sharded); None
+    without --sharded."""
+    return _mesh(args) if args.sharded else None
+
+
+def _warn_unsharded_backend(backend: str) -> None:
+    """The backends with a sharded and distributed path are `torch` and
+    `auto`; the others warn, as the JAX package's do, and the torch path
+    runs on the mesh."""
+    if backend not in ("torch", "auto"):
+        print(f"warning: backend {backend!r} has no sharded path; "
+              "using the torch kernel", file=sys.stderr)
+
+
+def _main_distributed(args) -> int:
+    """Multi-process flow: join the process group, run the distributed
+    search (parallel/multihost.py).  Every rank runs the same program;
+    process 0 owns file I/O and the time trailer.  Exit codes as one
+    process's: 2 for a card missing without --device cpu, a group that
+    cannot be joined, or a bad input (on every rank), 1 for no mutation or
+    a failed device or collective."""
+    import torch
+
+    from psa_torch.parallel import multihost
+
+    if args.device != "cpu" and not torch.cuda.is_available():
+        print("error: no CUDA device available; pass --device cpu to run "
+              "on the host", file=sys.stderr)
+        return 2
+    try:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, force=True)
+    except Exception as e:  # noqa: BLE001 - no group to join
+        print(f"error: cannot join a process group ({type(e).__name__}: "
+              f"{e}); pass --coordinator/--num-processes/--process-id "
+              "explicitly or launch via psa-torch-dist", file=sys.stderr)
+        return 2
+    try:
+        return _run_distributed(args, multihost)
+    finally:
+        multihost.shutdown()
+
+
+def _run_distributed(args, multihost) -> int:
+    """The body of `_main_distributed` inside the process group."""
+    import torch.distributed as dist
+
+    device = multihost.rank_device(args.device)
+    if not args.quiet:
+        world, rank = multihost.process_layout()
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        print(f"[dist] rank {rank} of {world}: device {device}, "
+              f"group backend {backend}", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    try:
+        if args.batch:
+            outdir = args.output
+            if outdir.endswith(".txt"):
+                outdir = outdir[: -len(".txt")]
+            code = multihost.run_distributed_batch(
+                args.input, outdir, backend=args.backend,
+                lenient=args.lenient, quiet=args.quiet, json_out=args.json,
+                shard_local=args.sharded,
+                device=device if args.backend in ("torch", "auto") else None)
+        else:
+            _warn_unsharded_backend(args.backend)
+            code = multihost.run_distributed_search(
+                args.input, args.output, lenient=args.lenient, mesh=[device])
+    except FileNotFoundError:
+        print(f"error: cannot open input file `{args.input}`", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except RuntimeError as e:
+        # a failed build, launch or collective: this rank stops, and the
+        # others fail within the group's timeout
+        print(f"error: distributed run failed: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return 1
+    if multihost.is_primary() and not args.quiet and not (
+            args.batch and args.json):
+        print("total time: %g" % (time.perf_counter() - t0))
+    return code
 
 
 class _ServeLineReader:
@@ -445,6 +588,7 @@ def _main_serve(args) -> int:
             return 2
     try:
         device = _batch_device(args)
+        mesh = _batch_mesh(args)
     except (RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -456,9 +600,10 @@ def _main_serve(args) -> int:
             rc = serve_tcp(args.listen, backend=args.backend,
                            lenient=args.lenient, json_out=args.json,
                            device=device, max_batch=args.serve_batch,
-                           quiet=args.quiet)
+                           quiet=args.quiet, mesh=mesh)
         else:
-            rc = _serve_loop(args, _ServeLineReader(sys.stdin), device)
+            rc = _serve_loop(args, _ServeLineReader(sys.stdin), device,
+                             mesh)
     except (RuntimeError, OSError, ValueError) as e:
         # a failed build, launch or fetch on the device: the server stops
         # rather than answer from another engine
@@ -471,7 +616,7 @@ def _main_serve(args) -> int:
     return rc
 
 
-def _serve_loop(args, reader, device) -> int:
+def _serve_loop(args, reader, device, mesh=None) -> int:
     """The chunk loop of `_main_serve`; returns the process exit code.
 
     Pipelined: up to `CONFIG.serve_inflight` chunks may be dispatched but
@@ -531,7 +676,7 @@ def _serve_loop(args, reader, device) -> int:
                 del queued[:max_b]
                 fin.submit(dispatch_query_lines(
                     take, backend=args.backend, lenient=args.lenient,
-                    json_out=args.json, device=device))
+                    json_out=args.json, device=device, mesh=mesh))
             if not fin.inflight:
                 if eof:
                     break

@@ -24,7 +24,8 @@ reply `<offset> <score%g> <mutant>` / `-1 <inf|-inf> <seq2>` / `error <msg>`,
 the same as the pipe server's, so anything speaking the stdin protocol can
 speak TCP by pointing at host:port.
 
-Device buckets run on `device` (models/batch.search_batch_async).  A
+Device buckets run on `device` (models/batch.search_batch_async), or
+shard their queries over `mesh` when one is given (`--serve --sharded`).  A
 failure there raises out of the loop: no host engine answers in the
 device's place.
 """
@@ -84,10 +85,12 @@ class PendingReplies:
 
 
 def dispatch_query_lines(lines, *, backend: str, lenient: bool,
-                         json_out: bool, device=None) -> PendingReplies:
+                         json_out: bool, device=None,
+                         mesh=None) -> PendingReplies:
     """Front half of one serve chunk: parse and validate every line,
     dispatch the device buckets (models/batch.search_batch_async) on
-    `device` (None = the card), and return a PendingReplies whose finish()
+    `device` (None = the card), or sharded over `mesh` when one is given
+    (`psa-torch --serve --sharded`), and return a PendingReplies whose finish()
     gives the aligned reply lines.  `outputs[j]` is the reply to `lines[j]`
     (None for a blank line, which gets no reply)."""
     from psa_torch.models.batch import search_batch_async
@@ -109,7 +112,8 @@ def dispatch_query_lines(lines, *, backend: str, lenient: bool,
     t0 = time.perf_counter()
     if queries:
         handles, finish_fn = search_batch_async(
-            queries, backend=backend, strict_alphabet=False, device=device)
+            queries, backend=backend, strict_alphabet=False, device=device,
+            mesh=mesh)
     else:
         handles, finish_fn = [], (lambda: [])
     return PendingReplies(outputs, queries, slots, handles, finish_fn, t0,
@@ -117,14 +121,15 @@ def dispatch_query_lines(lines, *, backend: str, lenient: bool,
 
 
 def process_query_lines(lines, *, backend: str, lenient: bool,
-                        json_out: bool, device=None):
+                        json_out: bool, device=None, mesh=None):
     """One synchronous serve chunk: query lines -> aligned reply lines.
 
     Returns (outputs, n_queries, seconds).  The stdin serve loop and the
     TCP server speak the same protocol through this one implementation
     (dispatch_query_lines + finish)."""
     return dispatch_query_lines(lines, backend=backend, lenient=lenient,
-                                json_out=json_out, device=device).finish()
+                                json_out=json_out, device=device,
+                                mesh=mesh).finish()
 
 
 def _error_json(msg: str) -> str:
@@ -251,7 +256,8 @@ class TCPQueryServer:
     _POLL_TICK = 0.002
 
     def __init__(self, host: str, port: int, *, backend: str, lenient: bool,
-                 json_out: bool, device, max_batch: int, quiet: bool):
+                 json_out: bool, device, max_batch: int, quiet: bool,
+                 mesh=None):
         from psa_torch.config import CONFIG
 
         self._addr = (host, port)
@@ -259,6 +265,7 @@ class TCPQueryServer:
         self._lenient = lenient
         self._json = json_out
         self._device = device
+        self._mesh = mesh
         self._max_batch = max(1, max_batch)
         # dispatched-but-uncollected chunks: the finisher thread waits on
         # the oldest fetch while this loop drains, parses and dispatches the
@@ -465,7 +472,8 @@ class TCPQueryServer:
         lines = [ln for _, ln in batch]
         pending = dispatch_query_lines(
             lines, backend=self._backend, lenient=self._lenient,
-            json_out=self._json, device=self._device)
+            json_out=self._json, device=self._device,
+            mesh=self._mesh)
         self._fin.submit(pending, tag=batch)
 
     def _route(self, sel, fifo: deque, batch, payload) -> None:
@@ -518,7 +526,7 @@ def parse_listen(listen: str):
 
 
 def serve_tcp(listen: str, *, backend: str, lenient: bool, json_out: bool,
-              device, max_batch: int, quiet: bool) -> int:
+              device, max_batch: int, quiet: bool, mesh=None) -> int:
     """CLI entry: parse HOST:PORT and run the server on the main thread."""
     try:
         host, port = parse_listen(listen)
@@ -527,5 +535,5 @@ def serve_tcp(listen: str, *, backend: str, lenient: bool, json_out: bool,
         return 2
     server = TCPQueryServer(host, port, backend=backend, lenient=lenient,
                             json_out=json_out, device=device,
-                            max_batch=max_batch, quiet=quiet)
+                            max_batch=max_batch, quiet=quiet, mesh=mesh)
     return server.run()

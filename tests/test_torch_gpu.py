@@ -450,3 +450,54 @@ def test_tcp_serve_on_card_matches_native(cuda, shared):
     shared_n = sw.launches_batched_shared - before[1]
     assert (shared_n if shared else per_row) > 0
     assert native.calls["search"] == before[2]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1), (8, 1), (1, 2), (2, 2), (2, 4)])
+def test_sharded_mesh_on_the_card(cuda, shape):
+    """1-D and 2-D meshes of the one card: one `sweep` launch per shard and
+    the numpy engine's winner."""
+    from psa_torch.parallel import mesh
+
+    rng = np.random.default_rng(sum(shape))
+    c1, c2 = codes(rng, 30_000, False), codes(rng, 3_000, False)
+    t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
+    n_op, n_ch = shape
+    before = sw.launches
+    if n_ch == 1:
+        got = mesh.search_sharded(c1, c2, t, [cuda] * n_op)
+    else:
+        got = mesh.search_sharded_2d(c1, c2, t, mesh.make_mesh_2d([cuda] * (n_op * n_ch),
+                                                                   n_op, n_ch))
+    assert sw.launches - before == n_op * n_ch
+    ref = AlignmentSearchEngine([1.0, 3.0, 4.0, 2.0], False,
+                                backend="numpy").search_codes(c1, c2)
+    assert got == ref
+
+
+def test_sharded_fallback_on_the_card(cuda):
+    from psa_torch.parallel import mesh
+
+    t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
+    c1, c2 = np.zeros(20_000, np.int32), np.zeros(500, np.int32)
+    mesh.fallbacks = 0
+    got = mesh.search_sharded(c1, c2, t, [cuda] * 4)
+    assert mesh.fallbacks == 1 and got.offset == 0
+    assert got == AlignmentSearchEngine([1.0, 3.0, 4.0, 2.0], False,
+                                        backend="native").search_codes(c1, c2)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_sharded_batch_on_the_card(cuda, shared):
+    """The batch sharded over 4 entries of the card: one batched launch per
+    block, the unsharded call's winners."""
+    qs = []
+    for s in range(64):
+        s1, s2 = random_sequences(1500, 300, seed=s)
+        qs.append(Query(np.array([1.0, 3.0, 4.0, 2.0]), qs[0].seq1 if shared and qs else s1,
+                        s2, False))
+    want = batch.search_batch(qs, device=cuda)
+    before = (sw.launches_batched, sw.launches_batched_shared)
+    got = batch.search_batch(qs, mesh=[cuda] * 4)
+    launched = (sw.launches_batched - before[0], sw.launches_batched_shared - before[1])
+    assert launched == ((0, 4) if shared else (4, 0))
+    assert got == want

@@ -14,8 +14,32 @@ Entry points run on the card unless the caller asks for the CPU
 host.
 """
 
+from psa_torch.core.alphabet import decode, encode
 from psa_torch.core.result import NoMutationFound, SearchResult
+from psa_torch.core.tables import ScoringTables, build_tables
 from psa_torch.models.search import AlignmentSearchEngine, search
+from psa_torch.utils.io import Query
 
-__all__ = ["AlignmentSearchEngine", "NoMutationFound", "SearchResult",
-           "search"]
+
+def search_batch(queries, backend: str = "torch",
+                 strict_alphabet: bool = True, device=None, mesh=None):
+    """Lazy re-export of models.batch.search_batch (the batch module loads
+    only when a batch is searched)."""
+    from psa_torch.models.batch import search_batch as _sb
+
+    return _sb(queries, backend=backend, strict_alphabet=strict_alphabet,
+               device=device, mesh=mesh)
+
+
+__all__ = [
+    "encode",
+    "decode",
+    "ScoringTables",
+    "build_tables",
+    "SearchResult",
+    "NoMutationFound",
+    "AlignmentSearchEngine",
+    "search",
+    "search_batch",
+    "Query",
+]

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from psa_torch.core.alphabet import decode_char
+import numpy as np
+
+from psa_torch.core.alphabet import decode, decode_char
 
 
 class NoMutationFound(Exception):
@@ -31,3 +33,11 @@ class SearchResult:
         """Seq2 with the single substitution applied (cpu_funcs.c:96-98)."""
         return seq2[: self.char_offset] + self.sub_char + seq2[self.char_offset + 1:]
 
+    def mutant_codes(self, codes2: np.ndarray) -> np.ndarray:
+        """Encoded Seq2 with the substitution applied (a copy)."""
+        out = np.asarray(codes2).copy()
+        out[self.char_offset] = self.sub_code
+        return out
+
+    def mutant_from_codes(self, codes2: np.ndarray) -> str:
+        return decode(self.mutant_codes(codes2))

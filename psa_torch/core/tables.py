@@ -112,6 +112,11 @@ def _build_sign_table() -> np.ndarray:
 _SIGN = _build_sign_table()
 
 
+def pair_sign(a: int, b: int) -> int:
+    """Sign class of a code pair (table lookup; mirrors get_hashtable_sign)."""
+    return int(_SIGN[a, b])
+
+
 def sign_weight(sign: int, w) -> float:
     """Score contribution of a sign class (cuda_funcs.cu:442-452)."""
     if sign == SIGN_AST:

@@ -491,11 +491,15 @@ def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
 
 
 def _host_engine_bucket(queries, idxs, results: list, w, is_max,
-                        host_backend: str, strict_alphabet: bool) -> None:
-    """Run one bucket on a host engine, "native" or "numpy" (the bucket key
-    guarantees shared (weights, mode))."""
+                        host_backend: str, strict_alphabet: bool,
+                        device=None) -> None:
+    """Run one bucket query by query through the single-query engine: a host
+    engine ("native" or "numpy"), or a differential engine ("xla" or
+    "conv") on `device` (the bucket key guarantees shared (weights,
+    mode))."""
     eng = AlignmentSearchEngine(np.asarray(w), is_max, backend=host_backend,
-                                strict_alphabet=strict_alphabet)
+                                strict_alphabet=strict_alphabet,
+                                device=device)
     for i in idxs:
         q = queries[i]
         try:
@@ -504,7 +508,7 @@ def _host_engine_bucket(queries, idxs, results: list, w, is_max,
             results[i] = None
 
 
-_BATCH_BACKENDS = ("torch", "numpy", "native", "auto")
+_BATCH_BACKENDS = ("torch", "numpy", "native", "auto", "xla", "conv")
 
 
 def search_batch(queries, backend: str = "torch",
@@ -518,9 +522,12 @@ def search_batch(queries, backend: str = "torch",
     one `batched_search_exact` on the card (`device=None`; raises without one)
     or on `device`, through the shared-Seq1 kernel when every query of the
     bucket has the same Seq1.  backend="numpy" or "native" runs every
-    bucket on that host engine instead; "auto" sends a bucket to the device
-    when its pair-evals reach `CONFIG.auto_threshold` and to the native
-    engine below it (to the device when the library does not build).
+    bucket on that host engine instead, and "xla" or "conv" runs every
+    bucket query by query through that differential engine on the card or
+    `device` (as the JAX package's per-query engine buckets do); "auto"
+    sends a bucket to the device when its pair-evals reach
+    `CONFIG.auto_threshold` and to the native engine below it (to the
+    device when the library does not build).
     mesh: a 1-D device mesh (parallel/mesh.make_mesh); device buckets then
     shard their queries over it (`batched_search_exact_sharded`) in place
     of `device`, and host-engine buckets ignore it.
@@ -537,10 +544,11 @@ def search_batch_async(queries, backend: str = "torch",
     device bucket (uploads, kernels, epilogues and fetches enqueued through
     `batched_search_exact_async`), then returns (handles, finish) at once.
     `handles` are the in-flight fetches; `finish()` waits for them, runs
-    the exact host selection and the host-engine buckets (`numpy`,
-    `native`, and `auto` below `auto_threshold`), and returns the results
-    in input order (None = no legal mutation).  A device failure at
-    dispatch or at fetch raises; no host engine answers in its place.
+    the exact host selection and the per-query engine buckets (`numpy`,
+    `native`, `xla`, `conv`, and `auto` below `auto_threshold`), and
+    returns the results in input order (None = no legal mutation).  A
+    device failure at dispatch or at fetch raises; no host engine answers
+    in its place.
     `mesh` as in `search_batch`."""
     return _search_batch_impl(queries, backend, strict_alphabet, device,
                               mesh, defer=True)
@@ -562,7 +570,10 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
     if backend == "native":
         native.get_lib()            # raises when the library cannot be built
     dev = None
-    if backend in ("torch", "auto"):
+    if backend in ("xla", "conv"):
+        # the engines run on one device; a mesh does not apply to them
+        dev = resolve_device(device)
+    elif backend in ("torch", "auto"):
         if mesh is not None:
             from psa_torch.parallel.mesh import make_mesh
 
@@ -584,7 +595,8 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
     handles: list = []
     finishers: list = []
     for (w, is_max, _, l2p), idxs in buckets.items():
-        host = backend if backend in ("numpy", "native") else None
+        host = (backend if backend in ("numpy", "native", "xla", "conv")
+                else None)
         if (backend == "auto" and native.available()
                 and sum(pair_evals(len(queries[i].seq1), len(queries[i].seq2))
                         for i in idxs) < CONFIG.auto_threshold):
@@ -592,7 +604,7 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
         if host is not None:
             def fin_host(idxs=idxs, w=w, is_max=is_max, host=host):
                 _host_engine_bucket(queries, idxs, results, w, is_max, host,
-                                    strict_alphabet)
+                                    strict_alphabet, dev)
 
             if defer:
                 finishers.append(fin_host)

@@ -24,6 +24,14 @@ Backends (all share the same output contract — see ops/select.py):
                the same time, and the winners merge under the canonical
                tie-break — the reference's cuda_percentage split
                (cpu_funcs.c:144-150).
+* ``xla``    — the chunked gather engine (ops/engine_xla.py): plain torch
+               indexing on the device, the full stats fetched, then exact
+               host selection; the differential reference of ``torch``.
+* ``conv``   — the one-hot convolution engine (ops/engine_conv.py): one
+               f32 conv1d on the device, checked exact, then the same
+               selection.
+Both take their device as ``torch`` does: the card unless
+`device="cpu"`.
 """
 
 from __future__ import annotations
@@ -43,8 +51,8 @@ from psa_torch.core.tables import (ScoringTables, build_tables_cached,
                                    device_tables)
 from psa_torch.ops.select import select_best
 
-_BACKENDS = ("torch", "numpy", "native", "auto", "hybrid")
-_DEVICE_BACKENDS = ("torch", "auto", "hybrid")
+_BACKENDS = ("torch", "numpy", "native", "auto", "hybrid", "xla", "conv")
+_DEVICE_BACKENDS = ("torch", "auto", "hybrid", "xla", "conv")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -127,6 +135,14 @@ class AlignmentSearchEngine:
             return offset_stats_numpy(codes1, codes2, self.tables)
         if backend == "native":
             return native.offset_stats_native(codes1, codes2, self.tables)
+        if backend == "xla":
+            from psa_torch.ops.engine_xla import offset_stats_xla
+
+            return offset_stats_xla(codes1, codes2, self.tables, self.device)
+        if backend == "conv":
+            from psa_torch.ops.engine_conv import offset_stats_conv
+
+            return offset_stats_conv(codes1, codes2, self.tables, self.device)
         from psa_torch.ops.sweep import offset_stats
 
         return offset_stats(codes1, codes2, self.tables, self.device)

@@ -17,6 +17,12 @@ counterpart of the virtual devices the JAX tests shard over, nothing more.
   offset block i over Seq2 chunk j, the "ch" reduction runs on the devices
   (counts summed, rank maxed, each shard keeping its owned block), then the
   epilogue with the epsilon of the full l2p.
+* The per-shard kernel (`kernel=`): "auto" runs the CUDA sweep
+  (ops/sweep.sweep, its plain version on CPU shards); "xla" runs the gather
+  engine (ops/engine_xla.stats5_xla), the counterpart of the JAX package's
+  `_local_stats_jnp`: the differential reference of the sharded path.  Both
+  give the same stats5 layout, so the epilogue, the merge and the fallback
+  do not depend on it.
 * Multi-process (parallel/multihost.py): when a torch.distributed group is
   up, `mesh` lists this process's shards and the global mesh is world_size
   x len(mesh) shards, rank r owning [r L, (r + 1) L); the packs (and the
@@ -144,6 +150,26 @@ def _place(devices, tables: ScoringTables, c1p, c2p) -> dict:
     return placed
 
 
+KERNELS = ("auto", "xla")
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown shard kernel {kernel!r}; choose from "
+                         f"{KERNELS}")
+
+
+def _shard_stats(kernel: str, c1: torch.Tensor, c2: torch.Tensor,
+                 code: torch.Tensor) -> torch.Tensor:
+    """(5, width) stats5 of one shard's Seq1 view c1 (width + len(c2)
+    codes) under c2: the sweep, or the gather engine for "xla"."""
+    if kernel == "xla":
+        from psa_torch.ops.engine_xla import stats5_xla
+
+        return stats5_xla(c1, c2, code, c1.shape[0] - c2.shape[0])
+    return sweep(c1, c2, code)
+
+
 def _local_shards(mesh: list):
     """(global shard index, device) of this process's shards."""
     _, rank = process_layout()
@@ -151,11 +177,14 @@ def _local_shards(mesh: list):
 
 
 def sharded_offset_stats(codes1p: np.ndarray, codes2p: np.ndarray,
-                         tables: ScoringTables, mesh: list) -> torch.Tensor:
+                         tables: ScoringTables, mesh: list,
+                         kernel: str = "auto") -> torch.Tensor:
     """Global (noff_pad, 5) int32 stats on the host, rows 0-3 the class
     counts and row 4 the maxrank, the offset axis block-sharded over the
     mesh (over every process's mesh under a process group).  codes1p and
-    codes2p come padded from `pad_for_mesh` for the global shard count."""
+    codes2p come padded from `pad_for_mesh` for the global shard count;
+    `kernel` is the per-shard sweep ("auto" or "xla")."""
+    _check_kernel(kernel)
     mesh = make_mesh(mesh)
     world, _ = process_layout()
     n = world * len(mesh)
@@ -169,7 +198,8 @@ def sharded_offset_stats(codes1p: np.ndarray, codes2p: np.ndarray,
     for g, dev in _local_shards(mesh):
         c1d, c2d, dtabs = placed[dev]
         o0 = g * per
-        parts.append(sweep(c1d[o0: o0 + per + l2p], c2d, dtabs.code))
+        parts.append(_shard_stats(kernel, c1d[o0: o0 + per + l2p], c2d,
+                                  dtabs.code))
     local = torch.cat([p.cpu() for p in parts], dim=1).T.contiguous()
     return _gather_rows(local)
 
@@ -221,27 +251,29 @@ def _select_from_shard_topk(buf: np.ndarray, noff: int, l2p: int,
 
 
 def _full_stats_select(codes1, codes2, tables: ScoringTables,
-                       mesh: list) -> SearchResult:
+                       mesh: list, kernel: str) -> SearchResult:
     """The fallback: every offset's stats over a flat 1-D mesh, then the
     unrestricted exact selection."""
     global fallbacks
     fallbacks += 1
     world, _ = process_layout()
     c1p, c2p, noff = pad_for_mesh(codes1, codes2, world * len(mesh))
-    stats = sharded_offset_stats(c1p, c2p, tables, mesh).numpy()
+    stats = sharded_offset_stats(c1p, c2p, tables, mesh, kernel).numpy()
     return select_best(stats[:, :4], stats[:, 4], tables,
                        np.asarray(codes1, np.int32),
                        np.asarray(codes2, np.int32), noff=noff)
 
 
 def search_sharded(codes1: np.ndarray, codes2: np.ndarray,
-                   tables: ScoringTables,
-                   mesh: list | None = None) -> SearchResult:
+                   tables: ScoringTables, mesh: list | None = None,
+                   kernel: str = "auto") -> SearchResult:
     """End-to-end 1-D sharded search -> SearchResult (exact host
-    selection).  Each shard reduces its block to k exact candidates on its
-    device, so the host fetches (6k+2) ints per shard; when the f32 ranking
-    cannot certify the winner the full stats are swept again and selected
-    without restriction."""
+    selection).  Each shard sweeps its block with `kernel` ("auto" = the
+    CUDA sweep, "xla" = the gather engine) and reduces it to k exact
+    candidates on its device, so the host fetches (6k+2) ints per shard;
+    when the f32 ranking cannot certify the winner the full stats are swept
+    again and selected without restriction."""
+    _check_kernel(kernel)
     mesh = make_mesh(mesh)
     world, _ = process_layout()
     n = world * len(mesh)
@@ -253,7 +285,8 @@ def search_sharded(codes1: np.ndarray, codes2: np.ndarray,
     for g, dev in _local_shards(mesh):
         c1d, c2d, dtabs = placed[dev]
         o0 = g * per
-        stats5 = sweep(c1d[o0: o0 + per + l2p], c2d, dtabs.code)
+        stats5 = _shard_stats(kernel, c1d[o0: o0 + per + l2p], c2d,
+                              dtabs.code)
         packs.append(_shard_pack(stats5, dtabs, noff, o0, per, l2p))
     # every shard's work is enqueued before the first fetch waits
     buf = _gather_rows(torch.cat([p.cpu() for p in packs]))
@@ -261,11 +294,12 @@ def search_sharded(codes1: np.ndarray, codes2: np.ndarray,
                                   codes2)
     if res is not None:
         return res
-    return _full_stats_select(codes1, codes2, tables, mesh)
+    return _full_stats_select(codes1, codes2, tables, mesh, kernel)
 
 
 def search_sharded_2d(codes1: np.ndarray, codes2: np.ndarray,
-                      tables: ScoringTables, mesh: list) -> SearchResult:
+                      tables: ScoringTables, mesh: list,
+                      kernel: str = "auto") -> SearchResult:
     """End-to-end 2-D (offset x char) sharded search -> SearchResult.
 
     Shard (i, j) sweeps offset block i over Seq2 chunk j (a chunk is just a
@@ -277,7 +311,8 @@ def search_sharded_2d(codes1: np.ndarray, codes2: np.ndarray,
     are full-length sums; the chunk's band would be too narrow to certify
     the winner).  The host merge is the 1-D path's; the rare uncertifiable
     case re-runs through the full stats on a flat mesh of the same
-    devices.  One process only."""
+    devices.  `kernel` as in `search_sharded`.  One process only."""
+    _check_kernel(kernel)
     if process_layout()[0] > 1:
         raise ValueError("the 2-D mesh runs in one process; use "
                          "search_sharded under a process group")
@@ -295,8 +330,9 @@ def search_sharded_2d(codes1: np.ndarray, codes2: np.ndarray,
         for j, dev in enumerate(row):
             c1d, c2d, dtabs = placed[dev]
             w0 = i * per_op + j * lc
-            stats[i].append(sweep(c1d[w0: w0 + per_op + lc],
-                                  c2d[j * lc: (j + 1) * lc], dtabs.code))
+            stats[i].append(_shard_stats(kernel, c1d[w0: w0 + per_op + lc],
+                                         c2d[j * lc: (j + 1) * lc],
+                                         dtabs.code))
     packs = []
     for i, row in enumerate(mesh):
         for j, dev in enumerate(row):
@@ -311,7 +347,7 @@ def search_sharded_2d(codes1: np.ndarray, codes2: np.ndarray,
     res = _select_from_shard_topk(buf, noff, l2p, tables, codes1, codes2)
     if res is not None:
         return res
-    return _full_stats_select(codes1, codes2, tables, flat)
+    return _full_stats_select(codes1, codes2, tables, flat, kernel)
 
 
 # choose_mesh_shape's conversion of link bytes into sweep work: the pairs
@@ -373,17 +409,18 @@ def mesh_shape(ndev: int, noff: int, n2: int) -> tuple[int, int]:
 
 
 def search_sharded_auto(codes1: np.ndarray, codes2: np.ndarray,
-                        tables: ScoringTables, devices=None) -> SearchResult:
+                        tables: ScoringTables, devices=None,
+                        kernel: str = "auto") -> SearchResult:
     """Sharded search with the mesh shape chosen per workload
     (`mesh_shape`): n_ch == 1 through the offset-sharded path, n_ch > 1
-    through the 2-D path."""
+    through the 2-D path; `kernel` as in `search_sharded`."""
     mesh = make_mesh(devices)
     n_op, n_ch = mesh_shape(len(mesh), _offsets(codes1, codes2),
                             np.asarray(codes2).shape[0])
     if n_ch == 1:
-        return search_sharded(codes1, codes2, tables, mesh)
+        return search_sharded(codes1, codes2, tables, mesh, kernel)
     return search_sharded_2d(codes1, codes2, tables,
-                             make_mesh_2d(mesh, n_op, n_ch))
+                             make_mesh_2d(mesh, n_op, n_ch), kernel)
 
 
 def device_reduce_winner(stats: torch.Tensor, tables: ScoringTables,

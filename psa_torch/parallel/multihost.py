@@ -236,10 +236,13 @@ def _read_on_primary(read_fn, input_path: str, lenient: bool, valid_fn):
 
 
 def run_distributed_search(input_path: str, output_path: str,
+                           backend_kernel: str = "auto",
                            lenient: bool = False, mesh=None) -> int:
     """Full multi-process flow: process 0 reads, the query broadcasts, the
     offsets shard over the global mesh (this process's `mesh`, default
-    [rank_device()], times the world size), process 0 writes.  Returns 0,
+    [rank_device()], times the world size) and each shard sweeps with
+    `backend_kernel` ("auto" = the CUDA sweep, "xla" = the gather engine;
+    parallel/mesh.search_sharded), process 0 writes.  Returns 0,
     or 1 when no mutation exists, like the CLI; raises the primary's read
     or validation error on every rank."""
     from psa_torch.core.alphabet import encode, validate
@@ -262,7 +265,7 @@ def run_distributed_search(input_path: str, output_path: str,
     # the primary writes from its ORIGINAL Seq2, never from decoded codes:
     # under --lenient every out-of-alphabet character encodes alike
     try:
-        res = search_sharded(c1, c2, tables, mesh)
+        res = search_sharded(c1, c2, tables, mesh, kernel=backend_kernel)
     except NoMutationFound:
         if is_primary():
             write_output(output_path, query.seq2, -1,
@@ -294,7 +297,7 @@ def run_distributed_batch(input_path: str, outdir: str,
     from psa_torch.parallel.mesh import _gather_rows
     from psa_torch.utils.io import format_output, read_cases
 
-    if device is None and backend in ("torch", "auto"):
+    if device is None and backend in ("torch", "auto", "xla", "conv"):
         device = rank_device()
     cases = _read_on_primary(
         read_cases, input_path, lenient,

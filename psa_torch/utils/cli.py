@@ -18,11 +18,14 @@ or a host backend (`numpy`, `native`) is given.  The reference's runtime
 flag (argv[1] = cuda_percentage, main.c:30-42) is `--device-share PCT`: a
 split of each query's offsets between the device and the native host
 engine (cpu_funcs.c:144-150), with -100 = the sequential oracle mode.
+`--trace LOGDIR` records a torch.profiler trace of the search, the batch or
+the serve loop into LOGDIR (utils/profiling.trace).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import select
@@ -46,16 +49,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", default=CONFIG.default_output,
                    help="output file (default ./output.txt)")
     p.add_argument("--backend", default=None,
-                   choices=["torch", "numpy", "native", "auto", "hybrid"],
+                   choices=["torch", "numpy", "native", "auto", "hybrid",
+                            "xla", "conv"],
                    help="compute path (default torch): torch = the CUDA "
                         "sweep kernel and device epilogue; numpy = the host "
                         "oracle; native = the C++/OpenMP host engine; auto "
                         "= native below the auto threshold of pair-evals, "
                         "torch above it; hybrid = a concurrent device/host "
-                        "split of the offsets (see --device-share)")
+                        "split of the offsets (see --device-share); xla = "
+                        "the chunked gather engine and conv = the one-hot "
+                        "convolution engine, both differential references "
+                        "on the device")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device of the torch path, also for auto and hybrid "
-                        "(cpu runs the kernel's plain PyTorch version)")
+                   help="device of the torch path, also for auto, hybrid, "
+                        "xla and conv (cpu runs the kernel's plain PyTorch "
+                        "version)")
     p.add_argument("--device-share", type=float, default=None, metavar="PCT",
                    help="the reference's cuda_percentage (main.c:30-42): "
                         "the device takes the FIRST PCT%% of offsets, the "
@@ -111,6 +119,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "file is still written (with --serve: one object "
                         "per reply)")
     p.add_argument("--quiet", action="store_true", help="suppress progress prints")
+    p.add_argument("--trace", metavar="LOGDIR", default=None,
+                   help="capture a torch.profiler trace (host operators and "
+                        "the card's kernels) of the search, the batch or the "
+                        "serve loop into LOGDIR, as "
+                        "<host>_<pid>.<timestamp>.pt.trace.json")
     p.add_argument("--sharded", action="store_true",
                    help="shard the offset axis over every local card (the "
                         "mesh shape chosen per query; PSA_MESH_SHAPE="
@@ -202,7 +215,7 @@ def main(argv: list[str] | None = None) -> int:
             # the mesh of every card (or of the one CPU device), resolved
             # first: without a card this exits 2
             mesh = _mesh(args)
-            _warn_unsharded_backend(args.backend)
+            kernel = _sharded_kernel(args.backend)
         else:
             # device None = the card, which raises when there is none
             engine = AlignmentSearchEngine(
@@ -216,19 +229,20 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     try:
-        if args.sharded:
-            from psa_torch.core.alphabet import encode, ensure_valid
-            from psa_torch.core.tables import build_tables_cached
-            from psa_torch.parallel.mesh import search_sharded_auto
+        with _tracer(args):
+            if args.sharded:
+                from psa_torch.core.alphabet import encode, ensure_valid
+                from psa_torch.core.tables import build_tables_cached
+                from psa_torch.parallel.mesh import search_sharded_auto
 
-            ensure_valid(query.seq1, query.seq2, args.lenient)
-            # the mesh shape chosen per query; PSA_MESH_SHAPE overrides
-            res = search_sharded_auto(
-                encode(query.seq1), encode(query.seq2),
-                build_tables_cached(np.asarray(query.weights, np.float64),
-                                    query.is_max), mesh)
-        else:
-            res = engine.search(query.seq1, query.seq2)
+                ensure_valid(query.seq1, query.seq2, args.lenient)
+                # the mesh shape chosen per query; PSA_MESH_SHAPE overrides
+                res = search_sharded_auto(
+                    encode(query.seq1), encode(query.seq2),
+                    build_tables_cached(np.asarray(query.weights, np.float64),
+                                        query.is_max), mesh, kernel=kernel)
+            else:
+                res = engine.search(query.seq1, query.seq2)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -314,9 +328,10 @@ def _main_batch(args) -> int:
 
     t0 = time.perf_counter()
     try:
-        results = search_batch(cases, backend=args.backend,
-                               strict_alphabet=not args.lenient,
-                               device=device, mesh=mesh)
+        with _tracer(args):
+            results = search_batch(cases, backend=args.backend,
+                                   strict_alphabet=not args.lenient,
+                                   device=device, mesh=mesh)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -350,19 +365,35 @@ def _main_batch(args) -> int:
 
 
 def _batch_device(args):
-    """The device of the batch and serve paths' device buckets (None for a
-    host backend), resolved before any work: "cuda" means the card, which
-    raises without one; `native` builds its library first, which raises
-    when it cannot be built."""
+    """The device of the batch and serve paths' device buckets and of the
+    xla and conv engines (None for a host backend), resolved before any
+    work: "cuda" means the card, which raises without one; `native` builds
+    its library first, which raises when it cannot be built."""
     if args.backend == "native":
         from psa_torch import native
 
         native.get_lib()
-    if args.backend not in ("torch", "auto"):
+    if args.backend not in _DEVICE_BATCH_BACKENDS:
         return None
     from psa_torch.models.search import resolve_device
 
     return resolve_device(None if args.device == "cuda" else args.device)
+
+
+# the batch and serve backends that run on a device
+_DEVICE_BATCH_BACKENDS = ("torch", "auto", "xla", "conv")
+
+
+def _tracer(args):
+    """`--trace LOGDIR`'s profiler around a path (utils/profiling.trace),
+    recording the card's kernels unless the run stays on the host; a null
+    context without --trace, which imports no profiler."""
+    if not args.trace:
+        return contextlib.nullcontext()
+    from psa_torch.utils.profiling import trace
+
+    on_card = args.device != "cpu" and args.backend not in ("numpy", "native")
+    return trace(args.trace, cuda=on_card)
 
 
 def _mesh(args) -> list:
@@ -380,13 +411,19 @@ def _batch_mesh(args):
     return _mesh(args) if args.sharded else None
 
 
-def _warn_unsharded_backend(backend: str) -> None:
-    """The backends with a sharded and distributed path are `torch` and
-    `auto`; the others warn, as the JAX package's do, and the torch path
-    runs on the mesh."""
+def _sharded_kernel(backend: str) -> str:
+    """The per-shard kernel of the sharded and distributed single-query
+    paths (parallel/mesh.py `kernel=`): `torch` and `auto` run the CUDA
+    sweep (csrc/sweep.cu, kernel "auto") on each shard, `xla` the gather
+    engine (ops/engine_xla.py).  The other backends have no sharded path:
+    they warn and the shards run the sweep, where the JAX package coerces
+    them to its xla kernel (psa_tpu/utils/cli.py `_sharded_kernel`)."""
+    if backend == "xla":
+        return "xla"
     if backend not in ("torch", "auto"):
         print(f"warning: backend {backend!r} has no sharded path; "
               "using the torch kernel", file=sys.stderr)
+    return "auto"
 
 
 def _main_distributed(args) -> int:
@@ -438,11 +475,13 @@ def _run_distributed(args, multihost) -> int:
                 args.input, outdir, backend=args.backend,
                 lenient=args.lenient, quiet=args.quiet, json_out=args.json,
                 shard_local=args.sharded,
-                device=device if args.backend in ("torch", "auto") else None)
+                device=(device if args.backend in _DEVICE_BATCH_BACKENDS
+                        else None))
         else:
-            _warn_unsharded_backend(args.backend)
             code = multihost.run_distributed_search(
-                args.input, args.output, lenient=args.lenient, mesh=[device])
+                args.input, args.output,
+                backend_kernel=_sharded_kernel(args.backend),
+                lenient=args.lenient, mesh=[device])
     except FileNotFoundError:
         print(f"error: cannot open input file `{args.input}`", file=sys.stderr)
         return 2
@@ -594,16 +633,17 @@ def _main_serve(args) -> int:
         return 2
     t_start = time.perf_counter()
     try:
-        if args.listen is not None:
-            from psa_torch.utils.server import serve_tcp
+        with _tracer(args):
+            if args.listen is not None:
+                from psa_torch.utils.server import serve_tcp
 
-            rc = serve_tcp(args.listen, backend=args.backend,
-                           lenient=args.lenient, json_out=args.json,
-                           device=device, max_batch=args.serve_batch,
-                           quiet=args.quiet, mesh=mesh)
-        else:
-            rc = _serve_loop(args, _ServeLineReader(sys.stdin), device,
-                             mesh)
+                rc = serve_tcp(args.listen, backend=args.backend,
+                               lenient=args.lenient, json_out=args.json,
+                               device=device, max_batch=args.serve_batch,
+                               quiet=args.quiet, mesh=mesh)
+            else:
+                rc = _serve_loop(args, _ServeLineReader(sys.stdin), device,
+                                 mesh)
     except (RuntimeError, OSError, ValueError) as e:
         # a failed build, launch or fetch on the device: the server stops
         # rather than answer from another engine

@@ -36,6 +36,13 @@ def write_input_file(path: str, weights, seq1: str, seq2: str, is_max: bool) -> 
         f.write("\n")
 
 
+def make_workload(n1: int, n2: int, seed: int = 0,
+                  weights=(1.0, 3.0, 4.0, 2.0), is_max: bool = False):
+    """(weights, seq1, seq2, is_max) of one random query, for benches."""
+    seq1, seq2 = random_sequences(n1, n2, seed=seed)
+    return np.asarray(weights, np.float64), seq1, seq2, is_max
+
+
 def main(argv: list[str] | None = None) -> int:
     """`psa-torch-gen`: write a reference-format input file of random
     sequences, one case record per seed (seed .. seed + cases - 1)."""

@@ -501,3 +501,41 @@ def test_sharded_batch_on_the_card(cuda, shared):
     launched = (sw.launches_batched - before[0], sw.launches_batched_shared - before[1])
     assert launched == ((0, 4) if shared else (4, 0))
     assert got == want
+
+
+@pytest.mark.parametrize("engine", ["conv", "xla"])
+@pytest.mark.parametrize("n1,n2,is_max", [(20_000, 2000, False), (70_511, 70_000, True)])
+def test_engine_stats_equal_native_on_the_card(cuda, engine, n1, n2, is_max):
+    """The differential engines' stats on the card, integer for integer
+    against the native host engine's, and their winners."""
+    from psa_torch.ops.engine_conv import offset_stats_conv
+    from psa_torch.ops.engine_xla import offset_stats_xla
+
+    rng = np.random.default_rng(n1 + is_max)
+    c1, c2 = codes(rng, n1, False), codes(rng, n2, False)
+    t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), is_max)
+    fn = offset_stats_conv if engine == "conv" else offset_stats_xla
+    counts, maxrank = fn(c1, c2, t, cuda)
+    want_c, want_m = native.offset_stats_native(c1, c2, t)
+    np.testing.assert_array_equal(counts, want_c)
+    np.testing.assert_array_equal(maxrank, want_m)
+    got = AlignmentSearchEngine([1.0, 3.0, 4.0, 2.0], is_max, backend=engine).search_codes(c1, c2)
+    assert got == AlignmentSearchEngine([1.0, 3.0, 4.0, 2.0], is_max,
+                                        backend="native").search_codes(c1, c2)
+
+
+def test_conv_integer_check_raises_on_the_card(cuda):
+    """Operands that are not 0/1 give a non-integer conv output: the engine's
+    check on the card raises instead of rounding it away."""
+    from psa_torch.ops import engine_conv
+
+    rng = np.random.default_rng(0)
+    t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
+    c1 = torch.from_numpy(codes(rng, 5000, False)).to(cuda)
+    c2 = torch.from_numpy(codes(rng, 300, False)).to(cuda)
+    x = engine_conv.onehot_seq1(c1)[None]
+    k = engine_conv.indicator_filter(torch.from_numpy(t.code).to(cuda), c2, t.num_ranks)
+    with pytest.raises(RuntimeError, match="from an integer"):
+        engine_conv.stats5_from_conv(engine_conv.conv1d_f32(x * 0.3, k)[0])
+    exact = engine_conv.stats5_from_conv(engine_conv.conv1d_f32(x, k)[0])
+    assert exact.dtype == torch.int32 and exact.is_cuda

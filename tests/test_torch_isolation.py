@@ -26,7 +26,9 @@ def test_import_leaves_no_jax_or_psa_tpu():
             "psa_torch.ops._sweep_v2, psa_torch.ops._sweep_v3, "
             "psa_torch.utils.kernel_lab, psa_torch.utils.lab_ab, psa_torch.native, "
             "psa_torch.utils.server, psa_torch.utils.io, psa_torch.parallel.mesh, "
-            "psa_torch.parallel.multihost, psa_torch.utils.launcher; "
+            "psa_torch.parallel.multihost, psa_torch.utils.launcher, "
+            "psa_torch.ops.engine_xla, psa_torch.ops.engine_conv, "
+            "psa_torch.utils.profiling; "
             "assert psa_torch.native.available(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'psa_tpu')); print(bad)")
@@ -44,7 +46,8 @@ def test_static_scan_finds_no_jax_or_psa_tpu_import():
     for f in ("models/batch.py", "ops/_sweep_v2.py", "ops/_sweep_v3.py",
               "utils/kernel_lab.py", "utils/lab_ab.py", "native/__init__.py",
               "utils/server.py", "utils/io.py", "utils/cli.py",
-              "parallel/mesh.py", "parallel/multihost.py", "utils/launcher.py"):
+              "parallel/mesh.py", "parallel/multihost.py", "utils/launcher.py",
+              "ops/engine_xla.py", "ops/engine_conv.py", "utils/profiling.py"):
         assert ROOT / "psa_torch" / f in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]

@@ -860,15 +860,45 @@ def serve_in_process(srv, per_client, closed: bool):
     return out[0]
 
 
+def two_physical_cores():
+    """Two CPUs of this process's affinity set on different physical cores
+    (by /sys's package and core ids), or None where there is no such pair."""
+    cpus = sorted(os.sched_getaffinity(0))
+
+    def core(c):
+        topo = Path(f"/sys/devices/system/cpu/cpu{c}/topology")
+        try:
+            return ((topo / "physical_package_id").read_text().strip(),
+                    (topo / "core_id").read_text().strip())
+        except OSError:
+            return ("?", str(c))
+
+    for c in cpus[1:]:
+        if core(c) != core(cpus[0]):
+            return cpus[0], c
+    return None
+
+
 def event_wait_gil(torch, dev, n: int = 4096, reps: int = 40):
     """Iterations per ms of a pure-Python loop on this thread while another
     thread waits in `torch.cuda.Event.synchronize` (as the serve loops'
     Finisher does in `Fetch.wait`), against the same loop while another
     thread sleeps as long (which releases the GIL).  A wait that held the
-    GIL would leave the loop at ~0."""
+    GIL would leave the loop at ~0.  The wait spins on its CPU, so the two
+    threads are pinned to different physical cores: on two hyperthreads of
+    one core the spin alone would halve the loop."""
     a = torch.randn(n, n, device=dev)
     a @ a
     torch.cuda.synchronize()
+    pair = two_physical_cores()
+    own = os.sched_getaffinity(0)
+
+    def pinned(cpu, fn, *args):
+        def run():
+            if cpu is not None:
+                os.sched_setaffinity(0, {cpu})      # this thread only
+            fn(*args)
+        return run
 
     def spin(thread):
         k = 0
@@ -877,19 +907,25 @@ def event_wait_gil(torch, dev, n: int = 4096, reps: int = 40):
             k += 1
         return k
 
-    ev = torch.cuda.Event()
-    for _ in range(reps):
-        a @ a
-    ev.record()
-    t0 = time.perf_counter()
-    busy = spin(threading.Thread(target=ev.synchronize))
-    wait_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    asleep = spin(threading.Thread(target=time.sleep, args=(wait_s,)))
-    sleep_s = time.perf_counter() - t0
+    if pair is not None:
+        os.sched_setaffinity(0, {pair[0]})
+    try:
+        ev = torch.cuda.Event()
+        for _ in range(reps):
+            a @ a
+        ev.record()
+        other = pair[1] if pair is not None else None
+        t0 = time.perf_counter()
+        busy = spin(threading.Thread(target=pinned(other, ev.synchronize)))
+        wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asleep = spin(threading.Thread(target=pinned(other, time.sleep, wait_s)))
+        sleep_s = time.perf_counter() - t0
+    finally:
+        os.sched_setaffinity(0, own)
     return {"wait_ms": wait_s * 1e3, "iters_per_ms_while_waiting": busy / (wait_s * 1e3),
             "iters_per_ms_while_sleeping": asleep / (sleep_s * 1e3),
-            "ratio": (busy / wait_s) / (asleep / sleep_s)}
+            "ratio": (busy / wait_s) / (asleep / sleep_s), "cpus": list(pair or [])}
 
 
 def serve_phases(torch, sw, v2, v3, native, batch, Query, wide, ns_line, ns_reply, dev):
@@ -1094,16 +1130,10 @@ def serve_phases(torch, sw, v2, v3, native, batch, Query, wide, ns_line, ns_repl
 
     # does a thread waiting on a CUDA event let this thread run? The loop's
     # Python iterations per ms while another thread waits on the event of
-    # ~0.1 s of queued matmuls, against the same loop alone.  The waiting
-    # thread spins on a host core, which may share this thread's physical
-    # core, so a measurement can come out near half; up to three are taken
-    # (a wait that held the GIL gives ~0 in every one)
-    tries = [event_wait_gil(torch, dev)]
-    while tries[-1]["ratio"] <= 0.5 and len(tries) < 3:
-        tries.append(event_wait_gil(torch, dev))
-    gil = tries[-1]
-    emit({"phase": "serve_event_wait_gil", **gil, "ratios": [t["ratio"] for t in tries]})
-    assert gil["ratio"] > 0.5, f"the event wait holds the GIL: {tries}"
+    # ~0.1 s of queued matmuls, against the same loop alone
+    gil = event_wait_gil(torch, dev)
+    emit({"phase": "serve_event_wait_gil", **gil})
+    assert gil["ratio"] > 0.5, f"the event wait holds the GIL: {gil}"
 
     # one 256-line chunk traced through dispatch and finish
     chunk = row_lines[:w["tcp_batch"]]
@@ -1404,24 +1434,72 @@ def distributed_phases(inp: Path, want_bytes: str, cases_txt: Path, want_files: 
 # (name, n1, n2, seed).
 ENGINE_SHAPES = [("north_star", 100_000, 10_000, 30), ("seq2_70000", 70_511, 70_000, 31),
                  ("seq1_1M", 1_000_000, 2048, 32)]
+# `trace`: the traced serve wave is the batch workload's per-row queries this
+# many times over (4096 lines), in chunks of this many lines.
+TRACE_SERVE_REPEAT = 4
+TRACE_SERVE_BATCH = 256
 # `sharded_xla`: the north star over this many shards of the card.
 SHARDED_XLA_SHARDS = 4
 
 
-def device_kernels(torch, fn) -> list:
-    """[(name, device us)] of the CUDA kernels one traced call of fn runs,
-    longest first: for the conv, the names say which algorithm cuDNN took
-    (implicit GEMM, FFT, Winograd).  Late in this long-lived process the
-    profiler may return none of the call's own events (PERF.md §7), so an
-    empty list means "not recorded"."""
-    from torch.profiler import ProfilerActivity, profile
+def conv_algorithms_child(spec: str) -> int:
+    """Body of the `conv_algorithms` child process: each conv of spec (a
+    JSON list of [label, input shape, filter shape, groups]) on random 0/1
+    f32 operands, once with cuDNN's heuristic choice and once autotuned
+    (`torch.backends.cudnn.benchmark`), each in a `record_function` range
+    of one profiler session.  Prints {label/choice: [[kernel, device us],
+    ...]} as one JSON line: the kernels whose device time falls in each
+    range, longest first.  The names say which algorithm cuDNN took
+    (implicit GEMM on CUDA cores or tensor cores, FFT, Winograd)."""
+    import tempfile
 
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from psa_torch.ops import engine_conv as ec
+
+    torch.manual_seed(0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted(((ev.key, ev.self_device_time_total) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total > 0), key=lambda kv: -kv[1])
+        for label, xs, ks, groups in json.loads(spec):
+            x = (torch.rand(xs, device="cuda") < 0.5).float()
+            k = (torch.rand(ks, device="cuda") < 0.5).float()
+            for choice, autotune in (("heuristic", False), ("autotuned", True)):
+                torch.backends.cudnn.benchmark = autotune
+                ec.conv1d_f32(x, k, groups=groups)       # autotunes once
+                torch.cuda.synchronize()
+                with record_function(f"{label}/{choice}"):
+                    ec.conv1d_f32(x, k, groups=groups)
+                    torch.cuda.synchronize()
+            del x, k
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and "/" in e["name"]]
+    out: dict = {r["name"]: {} for r in ranges}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        mid = e["ts"] + e["dur"] / 2
+        for r in ranges:
+            if r["ts"] <= mid <= r["ts"] + r["dur"]:
+                out[r["name"]][e["name"]] = out[r["name"]].get(e["name"], 0.0) + e["dur"]
+    print(json.dumps({name: sorted(ks.items(), key=lambda kv: -kv[1])[:3]
+                      for name, ks in out.items()}), flush=True)
+    return 0
+
+
+def conv_algorithms(convs: list) -> dict:
+    """The cuDNN kernels of each conv in convs ([label, input shape, filter
+    shape, groups]), by choice, from `conv_algorithms_child` in a new
+    process: late in this long-lived process the profiler loses the conv's
+    events (PERF.md §7), in a new one it records them."""
+    p = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.conv_algorithms_child(sys.argv[1]))",
+         json.dumps(convs)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, f"conv_algorithms: rc {p.returncode}: {p.stderr[-2000:]}"
+    return json.loads(p.stdout.strip().splitlines()[-1])
 
 
 def run_cli(cli_mod, argv):
@@ -1440,8 +1518,9 @@ def engines_phase(torch, sw, v2, v3, native, dev, s1, s2, ns_file: Path, ns_byte
     `AlignmentSearchEngine(backend="conv"|"xla")` with the kernels' counts
     zeroed around it (neither runs a sweep kernel), their stats equal to the
     native engine's at ENGINE_SHAPES in both modes, each engine's warm time,
-    the conv's largest distance from an integer before rounding and the
-    kernels cuDNN ran, and `psa-torch --backend conv|xla` byte-equal to
+    the conv's largest distance from an integer before rounding (the
+    kernels cuDNN ran come from `conv_algorithms`), and `psa-torch
+    --backend conv|xla` byte-equal to
     `--backend numpy` (single, and `--batch` on the mixed file).  Any
     failure raises.  numpy_batch is (exit code, {name: bytes}) of
     `--batch --backend numpy` on cases_txt."""
@@ -1498,18 +1577,13 @@ def engines_phase(torch, sw, v2, v3, native, dev, s1, s2, ns_file: Path, ns_byte
                         row[f"{engine}_ms"] = wall_ms(lambda: fn(c1, c2, t, dev), runs=3)
             # the conv's output before rounding, on the engine's own operands
             t = build_tables(np.array(NORTH_STAR["weights"]), False)
-            from psa_torch.ops.common import pad_query
-
-            c1p, c2p, noff = pad_query(c1, c2)
-            x = engine_conv.onehot_seq1(torch.from_numpy(
-                c1p[: noff + c2p.shape[0] - 1].astype(np.uint8)).to(dev))[None]
+            x = engine_conv.onehot_seq1(torch.from_numpy(c1.astype(np.uint8)).to(dev))[None]
             k = engine_conv.indicator_filter(torch.from_numpy(t.code).to(dev),
-                                             torch.from_numpy(c2p.astype(np.uint8)).to(dev),
+                                             torch.from_numpy(c2.astype(np.uint8)).to(dev),
                                              t.num_ranks)
             out = engine_conv.conv1d_f32(x, k)
             row["conv_max_int_err"] = float((out - out.round()).abs().max())
             row["conv_out_max"] = float(out.max())
-            row["conv_kernels"] = device_kernels(torch, lambda: engine_conv.conv1d_f32(x, k))[:4]
             row["conv_shape"] = {"x": list(x.shape), "k": list(k.shape), "out": list(out.shape)}
             del x, k, out
             shapes.append(row)
@@ -1559,48 +1633,96 @@ def library_calls_phase(torch, sw, v2, v3, dev, tables, big1, big2, rng):
     conv1d at 100k x 10k for `sweep`, a grouped conv1d (groups = B) on the
     batch workload for `sweep_batched`, one conv1d of B x F filters on the
     shared Seq1 for `sweep_batched_shared`, conv1d at 131072 x 8192 for
-    `sweep_v2` and `sweep_v3`.  Returns {kernel: row}; a row whose call does
-    not fit or is refused holds the reason and library_ms None."""
+    `sweep_v2` and `sweep_v3`.  Each call runs with cuDNN's heuristic choice
+    of algorithm (as the conv engine runs) and autotuned
+    (`torch.backends.cudnn.benchmark`, set in this phase only); where a
+    group's 4 + num_ranks filters are no multiple of 8, also with them
+    padded by zero filters to one (`padded`, `padded_autotuned`), the
+    channel alignment cuDNN's tensor-core kernels take.  library_ms is the
+    fastest of these that agrees with the kernel.  The kernels each choice
+    ran are named by `conv_algorithms`, with the engines' convs.
+    Returns {kernel: row}; a row whose call does not fit or is refused
+    holds the reason and library_ms None."""
     from psa_torch.ops import engine_conv as ec
 
     code = torch.from_numpy(tables.code).to(dev)
     nr = tables.num_ranks
     rows = {}
+    convs = [[f"engine_{name}", [1, 32, n1], [4 + nr, 32, n2], 1]
+             for name, n1, n2, _ in ENGINE_SHAPES]
 
     def measure(name, kernel_fn, kernel_stats, build, check_rows=slice(0, 5)):
         row = {"kernel": name}
+        want = kernel_stats()
+        width = want.shape[-1]
+        (k_ms, _, _), (k_bb, _, _) = kernel_times(torch, kernel_fn, runs=20)
+        row.update(kernel_ms=k_ms, kernel_ms_back_to_back=k_bb)
         try:
             x, k, groups, shape = build()
-            call = lambda: ec.conv1d_f32(x, k, groups=groups)  # noqa: E731
-            out = call()
-            row["conv_max_int_err"] = float((out - out.round()).abs().max())
-            st = ec.stats5_from_conv(out.reshape(shape))
         except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
             torch.cuda.empty_cache()
             row.update(library_ms=None, reason=f"{type(e).__name__}: {str(e)[:300]}")
             emit({"phase": "library_calls", **row})
             rows[name] = row
             return
-        want = kernel_stats()
-        width = want.shape[-1]
-        equal = bool(torch.equal(st[..., check_rows, :width], want[..., check_rows, :]))
-        row["equal_to_kernel"] = equal
-        assert equal, f"the library call of {name} differs from the kernel"
-        del st, out
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        # a slow call is timed over fewer runs, to keep the phase short
-        (l_ms, l_q1, l_q3), (l_bb, _, _) = kernel_times(
-            torch, call, runs=10 if first_ms < 20 else 3)
-        (k_ms, _, _), (k_bb, _, _) = kernel_times(torch, kernel_fn, runs=20)
-        row.update(library_ms=l_ms, library_ms_iqr=[l_q1, l_q3],
-                   library_ms_back_to_back=l_bb, kernel_ms=k_ms, kernel_ms_back_to_back=k_bb,
-                   ratio=l_ms / k_ms, ratio_back_to_back=l_bb / k_bb,
-                   x=list(x.shape), filter=list(k.shape), groups=groups,
-                   conv_kernels=device_kernels(torch, call)[:4])
+        row.update(x=list(x.shape), filter=list(k.shape), groups=groups)
+        variants = [("heuristic", k, shape, False), ("autotuned", k, shape, True)]
+        f = k.shape[0] // groups
+        fp = -(-f // 8) * 8
+        if fp != f:
+            kp = torch.zeros((groups, fp, *k.shape[1:]), dtype=k.dtype, device=k.device)
+            kp[:, :f] = k.reshape(groups, f, *k.shape[1:])
+            kp = kp.reshape(groups * fp, *k.shape[1:])
+            shp = (*shape[:-2], fp, shape[-1])
+            variants += [("padded", kp, shp, False), ("padded_autotuned", kp, shp, True)]
+            row["padded_filter"] = list(kp.shape)
+        for choice, kk, _, autotune in variants:
+            if not autotune and [list(x.shape), list(kk.shape), groups] not in [
+                    c[1:] for c in convs]:
+                convs.append([f"library_{name}_{choice}", list(x.shape), list(kk.shape),
+                              groups])
+        for choice, kk, shp, autotune in variants:
+            call = lambda kk=kk: ec.conv1d_f32(x, kk, groups=groups)  # noqa: E731
+            torch.backends.cudnn.benchmark = autotune
+            try:
+                out = call()                    # an autotuned call chooses here
+                err = float((out - out.round()).abs().max())
+                st = ec.stats5_from_conv(out.reshape(shp)[..., :f, :])
+            except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+                torch.cuda.empty_cache()
+                row[choice] = {"library_ms": None,
+                               "reason": f"{type(e).__name__}: {str(e)[:300]}"}
+                continue
+            equal = bool(torch.equal(st[..., check_rows, :width], want[..., check_rows, :]))
+            del st, out
+            res = {"conv_max_int_err": err, "equal_to_kernel": equal}
+            # the heuristic choice is the conv engine's: it must agree
+            assert equal or choice != "heuristic", \
+                f"the library call of {name} differs from the kernel"
+            if not equal:
+                res.update(library_ms=None, reason="its output differs from the kernel's")
+                row[choice] = res
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            # a slow call is timed over fewer runs, to keep the phase short
+            (l_ms, l_q1, l_q3), (l_bb, _, _) = kernel_times(
+                torch, call, runs=10 if first_ms < 20 else 3)
+            res.update(library_ms=l_ms, library_ms_iqr=[l_q1, l_q3],
+                       library_ms_back_to_back=l_bb, ratio=l_ms / k_ms,
+                       ratio_back_to_back=l_bb / k_bb)
+            row[choice] = res
+        timed = [c for c in ("heuristic", "autotuned", "padded", "padded_autotuned")
+                 if row.get(c, {}).get("library_ms") is not None]
+        if timed:
+            best = min(timed, key=lambda c: row[c]["library_ms"])
+            row.update(library_ms=row[best]["library_ms"], library_choice=best,
+                       ratio=row[best]["ratio"])
+        else:
+            row.update(library_ms=None, reason=row["heuristic"]["reason"])
         emit({"phase": "library_calls", **row})
         rows[name] = row
 
@@ -1641,6 +1763,7 @@ def library_calls_phase(torch, sw, v2, v3, dev, tables, big1, big2, rng):
         measure(name, lambda fn=fn: fn(d1, d2, code),
                 lambda fn=fn: sw.stats5_from_sweep(fn(d1, d2, code))[:, :noff],
                 lab_build, check_rows=[0, 1, 2, 4] if name == "sweep_v3" else slice(0, 5))
+    emit({"phase": "conv_algorithms", "convs": convs, "kernels": conv_algorithms(convs)})
     return rows
 
 
@@ -1687,9 +1810,13 @@ def trace_phase(work: Path, ns_file: Path, untraced_single: tuple, cases_txt: Pa
     untraced run's.  The untraced single-query and `--batch` runs are the
     `cli` and `cli_batch` phases' processes, given as (output, wall
     seconds); the serve wave runs untraced here, its replies held against
-    serve_want.  Prints each traced run's device-busy share and its wall
-    time beside the untraced run's."""
+    serve_want.  The serve wave is long (thousands of lines, one launch or
+    more per chunk of TRACE_SERVE_BATCH), and its trace must hold a
+    `sweep_batched_kernel` event for every chunk: none may be lost late in
+    the run.  Prints each traced run's device-busy share and its wall time
+    beside the untraced run's."""
     text = "\n".join(serve_lines) + "\n"
+    chunks = -(-len(serve_lines) // TRACE_SERVE_BATCH)
     runs = (("single", "sweep_kernel",
              lambda o, extra: run_cli_process([str(ns_file), "-o", str(o), "--quiet", *extra]),
              lambda o, _: o.read_text() if o.is_file() else None),
@@ -1698,8 +1825,9 @@ def trace_phase(work: Path, ns_file: Path, untraced_single: tuple, cases_txt: Pa
                                                "--quiet", "-o", str(o), *extra]),
              lambda o, _: {f.name: f.read_bytes() for f in sorted(o.glob("out_*.txt"))}),
             ("serve", "sweep_batched_kernel",
-             lambda o, extra: run_cli_process(["--serve", "--quiet", "--serve-batch", "256",
-                                               *extra], stdin_text=text),
+             lambda o, extra: run_cli_process(["--serve", "--quiet", "--serve-batch",
+                                               str(TRACE_SERVE_BATCH), *extra],
+                                              stdin_text=text),
              lambda _, stdout: stdout))
     want = {"single": untraced_single[0], "batch": untraced_batch[0],
             "serve": "\n".join(serve_want) + "\n"}
@@ -1724,18 +1852,20 @@ def trace_phase(work: Path, ns_file: Path, untraced_single: tuple, cases_txt: Pa
             got[tag] = (rc, result(o, stdout), secs)
         events = trace_events(logdir)
         summ = trace_summary(events)
-        has_kernel = any(kernel in e.get("name", "") for e in events
-                         if e.get("cat") == "kernel")
+        n_kernel = sum(kernel in e.get("name", "") for e in events
+                       if e.get("cat") == "kernel")
+        least = chunks if name == "serve" else 1
         emit({"phase": "trace", "path": name, "rc": [got["plain"][0], got["traced"][0]],
               "equal_untraced": got["traced"][1] == got["plain"][1],
               "equal_want": got["plain"][1] == want[name],
               "wall_s_untraced": got["plain"][2], "wall_s_traced": got["traced"][2],
-              "has_" + kernel: has_kernel,
+              kernel + "_events": n_kernel, "least_events": least,
               "trace_mb": sum(f.stat().st_size for f in logdir.glob("*.json")) / 1e6,
               **summ})
         assert got["traced"][:2] == got["plain"][:2] and got["plain"][1] == want[name], \
             f"--trace changed the {name} path's exit code or output"
-        assert has_kernel, f"the {name} trace holds no {kernel} event"
+        assert n_kernel >= least, \
+            f"the {name} trace holds {n_kernel} {kernel} events, fewer than {least}"
 
 
 def sharded_xla_phase(torch, sw, v2, v3, mesh_mod, tables, c1, c2, dev, ns_file: Path,
@@ -2090,7 +2220,7 @@ def main() -> int:
     # card, `--trace` on the single-query, batch and serve paths, and the
     # north star through the sharded path's xla kernel
     t_new = time.perf_counter()
-    serve_qs = bq["per_row"][:512]
+    serve_qs = bq["per_row"] * TRACE_SERVE_REPEAT
     try:
         engines_phase(
             torch, sw, v2, v3, native, dev, s1, s2, inp, want_bytes, cases_txt,
@@ -2098,7 +2228,7 @@ def main() -> int:
         trace_phase(work, inp, (want_bytes, cli_s), cases_txt, (fc, pc_s),
                                  [serve_line(q) for q in serve_qs],
                                  [reply_line(q, r) for q, r in
-                                  zip(serve_qs, bres["per_row"][:512])])
+                                  zip(serve_qs, bres["per_row"] * TRACE_SERVE_REPEAT)])
         sharded_xla_phase(torch, sw, v2, v3, mesh_mod, eng.tables, encode(s1), encode(s2),
                           dev, inp, want_bytes, work)
     except AssertionError as e:
@@ -2364,10 +2494,13 @@ def main() -> int:
     # 5d. the one library call that computes each kernel's statistics,
     # checked against the kernel and timed beside it
     t_lib = time.perf_counter()
+    autotune = torch.backends.cudnn.benchmark
     try:
         library = library_calls_phase(torch, sw, v2, v3, dev, t_ns, big1, big2, rng)
     except AssertionError as e:
         return fail(str(e))
+    finally:
+        torch.backends.cudnn.benchmark = autotune
     new_phases_s += time.perf_counter() - t_lib
 
     # 6. the ported kernels

@@ -50,11 +50,6 @@ class EngineConfig:
     # depths 2 and 4 on the card (PSA_SERVE_INFLIGHT overrides).
     serve_inflight: int = _env_int("PSA_SERVE_INFLIGHT", 2)
 
-    # smallest padded length of the differential engines (ops/engine_xla.py,
-    # ops/engine_conv.py): their sequences pad to buckets growing x1.5 from
-    # this floor (ops/common.bucket_len), as the JAX package's do
-    bucket_floor: int = _env_int("PSA_BUCKET_FLOOR", 512)
-
     # defaults mirroring the reference CLI contract (def.h:20-21)
     default_input: str = "./input.txt"
     default_output: str = "./output.txt"

@@ -51,8 +51,8 @@ from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    build_tables_cached, device_tables,
                                    device_tables_cached, f32_band_epsilon)
-from psa_torch.models.search import (AlignmentSearchEngine, pair_evals,
-                                     resolve_device)
+from psa_torch.models.search import (DEVICE_BACKENDS, AlignmentSearchEngine,
+                                     pair_evals, resolve_device)
 from psa_torch.ops.common import keyed_f32_totals_ops
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
@@ -570,16 +570,14 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
     if backend == "native":
         native.get_lib()            # raises when the library cannot be built
     dev = None
-    if backend in ("xla", "conv"):
-        # the engines run on one device; a mesh does not apply to them
-        dev = resolve_device(device)
-    elif backend in ("torch", "auto"):
-        if mesh is not None:
-            from psa_torch.parallel.mesh import make_mesh
+    if mesh is not None and backend in ("torch", "auto"):
+        # the device buckets shard over the mesh; the xla and conv engines
+        # run on one device, and a mesh does not apply to them
+        from psa_torch.parallel.mesh import make_mesh
 
-            mesh = make_mesh(mesh)
-        else:
-            dev = resolve_device(device)
+        mesh = make_mesh(mesh)
+    elif backend in DEVICE_BACKENDS:
+        dev = resolve_device(device)
     results: list = [None] * len(queries)
     if strict_alphabet and queries:
         ok = (validate_batch([q.seq1 for q in queries])

@@ -52,7 +52,8 @@ from psa_torch.core.tables import (ScoringTables, build_tables_cached,
 from psa_torch.ops.select import select_best
 
 _BACKENDS = ("torch", "numpy", "native", "auto", "hybrid", "xla", "conv")
-_DEVICE_BACKENDS = ("torch", "auto", "hybrid", "xla", "conv")
+# the backends that run on a device (the rest run on the host)
+DEVICE_BACKENDS = ("torch", "auto", "hybrid", "xla", "conv")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -101,7 +102,7 @@ class AlignmentSearchEngine:
             np.asarray(weights, np.float64), is_max)
         self.backend = backend
         self.strict_alphabet = strict_alphabet
-        self.device = (resolve_device(device) if backend in _DEVICE_BACKENDS
+        self.device = (resolve_device(device) if backend in DEVICE_BACKENDS
                        else None)
         if backend == "native":
             native.get_lib()        # raises when the library cannot be built

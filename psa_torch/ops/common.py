@@ -1,41 +1,12 @@
-"""Shared helpers for the device path: rounding, the differential
-engines' bucketed padding, and the f32 keyed totals."""
+"""Shared helpers for the device path: rounding and the f32 keyed totals."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-
-LANE = 128
 
 
 def round_up(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def bucket_len(n: int, floor: int = 512, multiple: int = LANE) -> int:
-    """Smallest bucket >= n from {floor, 1.5*floor, ...}, lane-aligned."""
-    b = floor
-    while b < n:
-        b = round_up(int(b * 3 // 2), multiple)
-    return b
-
-
-def pad_query(codes1: np.ndarray, codes2: np.ndarray,
-              floor: int | None = None) -> tuple[np.ndarray, np.ndarray, int]:
-    """Pad both sequences with PAD_CODE to bucketed lengths, as the JAX
-    package's engines do; returns (c1p, c2p, noff).  Seq1 covers every
-    window [o, o + l2p) for o < noff."""
-    from psa_torch.config import CONFIG
-    from psa_torch.core.alphabet import pad_codes
-
-    if floor is None:
-        floor = CONFIG.bucket_floor
-    n1, n2 = codes1.shape[0], codes2.shape[0]
-    noff = n1 - n2 + 1
-    l2p = bucket_len(n2, floor)
-    l1p = bucket_len(max(n1, noff + l2p - 1), floor)
-    return pad_codes(codes1, l1p), pad_codes(codes2, l2p), noff
 
 
 def keyed_f32_totals_ops(counts: torch.Tensor, maxrank: torch.Tensor,

@@ -25,10 +25,10 @@ and the product is a direct or implicit-GEMM sum.  So:
   on its device in the same call: if any output lies 0.25 or more from an
   integer (an FFT or Winograd algorithm would leave such residues), the
   engine raises.  It never turns to another engine or to the host.
-The engine's inputs are cut to the windows it reports: Seq1 to noff + l2p
-- 1 codes, so the output holds exactly the noff real offsets (the JAX
-package convolves the whole bucket and drops the rest).  On the CPU the
-same code runs through oneDNN.
+Both sequences go in at their own lengths, so the output holds exactly the
+noff real offsets (the JAX package pads them to a few bucketed shapes to
+bound its compiles and drops the padded offsets).  On the CPU the same code
+runs through oneDNN.
 
 `num_ranks == 0` (no pair admits a substitution) goes to the numpy oracle,
 as in the JAX package: that is its semantics, not a device fallback.
@@ -41,7 +41,6 @@ import torch
 
 from psa_torch.core.alphabet import NCODES_PAD
 from psa_torch.core.tables import ScoringTables
-from psa_torch.ops.common import pad_query
 
 # the largest distance from an integer that a conv output may show before
 # rounding; exact sums show 0
@@ -107,7 +106,7 @@ def conv1d_f32(x: torch.Tensor, k: torch.Tensor, groups: int = 1) -> torch.Tenso
 
 def conv_stats5(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
                 num_ranks: int) -> torch.Tensor:
-    """(5, n1 - l2p + 1) int32 stats5 of one query on c1's device: c1 and c2
+    """(5, n1 - n2 + 1) int32 stats5 of one query on c1's device: c1 and c2
     integer code tensors, code the (32, 32) fused table."""
     x = onehot_seq1(c1)[None]                           # (1, 32, L1)
     k = indicator_filter(code, c2, num_ranks)           # (F, 32, L2)
@@ -123,10 +122,8 @@ def offset_stats_conv(codes1: np.ndarray, codes2: np.ndarray,
 
         return offset_stats_numpy(codes1, codes2, tables)
     dev = torch.device(device)
-    c1p, c2p, noff = pad_query(np.asarray(codes1), np.asarray(codes2))
-    l2p = c2p.shape[0]
-    c1 = torch.from_numpy(c1p[: noff + l2p - 1].astype(np.uint8)).to(dev)
-    c2 = torch.from_numpy(c2p.astype(np.uint8)).to(dev)
+    c1 = torch.from_numpy(np.asarray(codes1).astype(np.uint8)).to(dev)
+    c2 = torch.from_numpy(np.asarray(codes2).astype(np.uint8)).to(dev)
     code = torch.from_numpy(np.ascontiguousarray(tables.code)).to(dev)
     st = conv_stats5(c1, c2, code, tables.num_ranks).cpu().numpy()
     return st[:4].T.copy(), st[4].copy()

@@ -14,8 +14,9 @@ on any device, and the sharded paths' `kernel="xla"` (parallel/mesh.py).
 Memory: a block holds _BLOCK x l2p pairs.  The windows are a view of Seq1
 (`unfold`, no copy); the pair index is int32 (4 bytes a pair), the looked-up
 code int8 (1 byte) and each decode step a bool or int8 temporary of the
-same shape (1 byte).  At l2p = 250,016 (the 600k x 250k query) a block is
-1.28e8 pairs: 512 MB of index and under 1 GB of temporaries at the peak.
+same shape (1 byte).  At l2p = 250,016 (the 600k x 250k query's padded
+Seq2 on the sharded path) a block is 1.28e8 pairs: 512 MB of index and
+under 1 GB of temporaries at the peak.
 """
 
 from __future__ import annotations
@@ -23,9 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from psa_torch.core.alphabet import pad_codes
 from psa_torch.core.tables import ScoringTables
-from psa_torch.ops.common import pad_query, round_up
 
 _BLOCK = 512
 
@@ -76,19 +75,14 @@ def stats5_xla(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
 def offset_stats_xla(codes1: np.ndarray, codes2: np.ndarray,
                      tables: ScoringTables, device):
     """Per-offset (counts (noff, 4) int32, maxrank (noff,) int32) on the
-    host, computed on `device`.  Both sequences pad to the JAX package's
-    buckets (`pad_query`); the offsets run in whole blocks up to noff (the
-    JAX package also sweeps the bucket's padded offsets past it and drops
-    them), Seq1's padding extended where the last block's windows need it."""
+    host, computed on `device`.  Both sequences go in at their own lengths:
+    the JAX package pads them to a few bucketed shapes to bound its
+    compiles, which the card does not need, and the last block is cut at
+    noff."""
     dev = torch.device(device)
-    c1p, c2p, noff = pad_query(np.asarray(codes1), np.asarray(codes2))
-    l2p = c2p.shape[0]
-    noff_pad = round_up(noff, _BLOCK)
-    if c1p.shape[0] < noff_pad + l2p - 1:
-        # extend Seq1's padding so every padded offset has a full window
-        c1p = pad_codes(c1p, noff_pad + l2p - 1)
-    c1 = torch.from_numpy(c1p.astype(np.uint8)).to(dev)
-    c2 = torch.from_numpy(c2p.astype(np.uint8)).to(dev)
+    c1 = torch.from_numpy(np.asarray(codes1).astype(np.uint8)).to(dev)
+    c2 = torch.from_numpy(np.asarray(codes2).astype(np.uint8)).to(dev)
     code = torch.from_numpy(np.ascontiguousarray(tables.code)).to(dev)
-    st = stats5_xla(c1, c2, code, noff_pad)[:, :noff].cpu().numpy()
+    noff = c1.shape[0] - c2.shape[0] + 1
+    st = stats5_xla(c1, c2, code, noff).cpu().numpy()
     return st[:4].T.copy(), st[4].copy()

@@ -294,10 +294,11 @@ def run_distributed_batch(input_path: str, outdir: str,
     from psa_torch.core.alphabet import validate
     from psa_torch.core.result import SearchResult
     from psa_torch.models.batch import search_batch
+    from psa_torch.models.search import DEVICE_BACKENDS
     from psa_torch.parallel.mesh import _gather_rows
     from psa_torch.utils.io import format_output, read_cases
 
-    if device is None and backend in ("torch", "auto", "xla", "conv"):
+    if device is None and backend in DEVICE_BACKENDS:
         device = rank_device()
     cases = _read_on_primary(
         read_cases, input_path, lenient,

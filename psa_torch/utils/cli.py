@@ -373,15 +373,12 @@ def _batch_device(args):
         from psa_torch import native
 
         native.get_lib()
-    if args.backend not in _DEVICE_BATCH_BACKENDS:
+    from psa_torch.models.search import DEVICE_BACKENDS, resolve_device
+
+    if args.backend not in DEVICE_BACKENDS:
         return None
-    from psa_torch.models.search import resolve_device
 
     return resolve_device(None if args.device == "cuda" else args.device)
-
-
-# the batch and serve backends that run on a device
-_DEVICE_BATCH_BACKENDS = ("torch", "auto", "xla", "conv")
 
 
 def _tracer(args):
@@ -459,6 +456,8 @@ def _run_distributed(args, multihost) -> int:
     """The body of `_main_distributed` inside the process group."""
     import torch.distributed as dist
 
+    from psa_torch.models.search import DEVICE_BACKENDS
+
     device = multihost.rank_device(args.device)
     if not args.quiet:
         world, rank = multihost.process_layout()
@@ -475,7 +474,7 @@ def _run_distributed(args, multihost) -> int:
                 args.input, outdir, backend=args.backend,
                 lenient=args.lenient, quiet=args.quiet, json_out=args.json,
                 shard_local=args.sharded,
-                device=(device if args.backend in _DEVICE_BATCH_BACKENDS
+                device=(device if args.backend in DEVICE_BACKENDS
                         else None))
         else:
             code = multihost.run_distributed_search(

@@ -16,6 +16,8 @@ import contextlib
 import dataclasses
 import time
 
+from psa_torch.models import search
+
 
 @dataclasses.dataclass
 class Phase:
@@ -51,7 +53,7 @@ class Timer:
 
 def pair_evals(n1: int, n2: int) -> float:
     """Offset-position pair evaluations for one sweep (the work unit)."""
-    return float(n1 - n2 + 1) * float(n2)
+    return float(search.pair_evals(n1, n2))
 
 
 def throughput(n1: int, n2: int, seconds: float, chips: int = 1) -> float:

@@ -108,6 +108,18 @@ def test_end_to_end_matches_jax_numpy(engine, weights):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("noff", [511, 512, 1025])
+def test_stats_at_block_edges(engine, noff):
+    """Unpadded sequences whose offsets end just before, at and just past a
+    whole number of the gather engine's 512-offset blocks."""
+    rng = np.random.default_rng(noff)
+    for is_max in (False, True):
+        c2 = random_codes(rng, 97)
+        assert_stats_equal(engine, (1.0, 3.0, 4.0, 2.0), is_max,
+                           random_codes(rng, noff + 96), c2)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
 def test_degenerate_shapes(engine):
     """n2 == n1, a one-character Seq2, all hyphens."""
     cases = [

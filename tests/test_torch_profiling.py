@@ -18,7 +18,6 @@ import torch
 import psa_tpu
 from psa_tpu.core import tables as jtables
 from psa_tpu.core.result import SearchResult as JaxResult
-from psa_tpu.ops import common as jcommon
 from psa_tpu.utils import cli as jax_cli
 from psa_tpu.utils import generator as jgenerator
 from psa_tpu.utils import profiling as jprof
@@ -26,7 +25,6 @@ from psa_tpu.utils import profiling as jprof
 import psa_torch
 from psa_torch.core import tables
 from psa_torch.core.result import SearchResult
-from psa_torch.ops import common
 from psa_torch.utils import cli, generator, profiling
 from psa_torch.utils.generator import random_sequences, write_input_file
 
@@ -211,20 +209,3 @@ def test_make_workload_matches_jax(args):
     np.testing.assert_array_equal(mine[0], theirs[0])
     assert mine[0].dtype == theirs[0].dtype
     assert mine[1:] == theirs[1:]
-
-
-@pytest.mark.parametrize("n1,n2,floor", [(100_000, 10_000, None), (64, 64, None),
-                                         (70_511, 70_000, None), (1000, 1, 256),
-                                         (513, 512, 512), (2, 1, None)])
-def test_bucket_len_and_pad_query_match_jax(n1, n2, floor):
-    rng = np.random.default_rng(n1 + n2)
-    c1 = rng.integers(0, 27, n1).astype(np.int32)
-    c2 = rng.integers(0, 27, n2).astype(np.int32)
-    got = common.pad_query(c1, c2, floor)
-    want = jcommon.pad_query(c1, c2, floor)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
-    assert got[2] == want[2]
-    for n in (1, 511, 512, 513, 10_000, 250_000):
-        assert common.bucket_len(n) == jcommon.bucket_len(n)
-        assert common.bucket_len(n, 256, 32) == jcommon.bucket_len(n, 256, 32)

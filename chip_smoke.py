@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the sweep kernels from psa_torch/csrc and holds each against its
-plain PyTorch version on the card (`sweep` also at the edges of its even
+Builds the sweep kernels and the top-k epilogue kernel from psa_torch/csrc
+and holds each against its plain PyTorch version on the card (the epilogue
+under `same_pack` at every shape the paths give it, and a warm north-star
+query's device events counted in a new process) (`sweep` also at the edges of its even
 split, with the card's split beside `sweep_plan`'s; the lab's v2 and v3 at
 the edges of their Seq2 segments, each with the card's split beside its
 launch plan, `v2_launch_plan`'s or `v3_launch_plan`'s).  Drives the port's
@@ -259,14 +261,24 @@ def wall_ms(fn, runs: int, warm: int = 1):
 
 
 def zero_launches(sw, v2, v3) -> None:
+    from psa_torch.ops import epilogue as ep
+
     sw.launches = sw.launches_batched = sw.launches_batched_shared = 0
-    v2.launches_v2 = v3.launches_v3 = 0
+    v2.launches_v2 = v3.launches_v3 = ep.launches = ep.cuda_launches = 0
 
 
 def read_launches(sw, v2, v3) -> dict:
+    from psa_torch.ops import epilogue as ep
+
     return {"sweep": sw.launches, "sweep_batched": sw.launches_batched,
             "sweep_batched_shared": sw.launches_batched_shared,
-            "sweep_v2": v2.launches_v2, "sweep_v3": v3.launches_v3}
+            "sweep_v2": v2.launches_v2, "sweep_v3": v3.launches_v3,
+            "epilogue": ep.launches, "epilogue_cuda_launches": ep.cuda_launches}
+
+
+def sweep_launches(launches: dict) -> int:
+    """Launches of the sweep kernels in a `read_launches` dict."""
+    return sum(n for name, n in launches.items() if name.startswith("sweep"))
 
 
 def padded_batch(rng, sw, b: int, n1: int, n2: int, hyphen_p: float = 0.0,
@@ -420,8 +432,7 @@ def sweep_checks(torch, sw, code, dev):
             c2[::43] = 28
         noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
         plan = split_plan(sw, noff_pad, l2p)
-        d1 = sw.upload_codes(c1, l1k, dev)
-        d2 = sw.upload_codes(c2, l2p, dev)
+        d1, d2 = sw.upload_codes(dev, (c1, l1k), (c2, l2p))
         got = sw.sweep(d1, d2, code)
         torch.cuda.synchronize()
         want = sw.sweep_plain(d1, d2, code)
@@ -522,8 +533,7 @@ def lab_kernel_checks(torch, sw, v2, v3, code, dev):
                 t = table.copy()
                 t[pair] = top
                 case_code = torch.from_numpy(t).to(dev)
-        d1 = sw.upload_codes(c1, l1k, dev)
-        d2 = sw.upload_codes(c2, l2p, dev)
+        d1, d2 = sw.upload_codes(dev, (c1, l1k), (c2, l2p))
         kernels = [("sweep_v2", v2.sweep_v2, v2.sweep_v2_plain)]
         if op == 0.0:
             kernels.append(("sweep_v3", v3.sweep_v3, v3.sweep_v3_plain))
@@ -690,6 +700,256 @@ def traced_busy(torch, fn):
               and ev.self_device_time_total > 0}
     return (host_ms, sum(dev_us.values()) / 1e3,
             sorted(dev_us.items(), key=lambda kv: -kv[1])[:6])
+
+def epilogue_bound(rows: int, np_len: int, k: int):
+    """(bound_ms, "bytes") of one epilogue call: its stats5 read once (20
+    bytes an offset) and its pack written once (4 (6k + 2) bytes a row)
+    over HBM; its f32 operations (~10 an offset) take ~100x less at the
+    fp32 peak."""
+    return rows * (20 * np_len + 4 * (6 * k + 2)) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def kth_tie_rows(torch, stats5, dtabs, noff, k: int) -> int:
+    """Rows of stats5 whose k-th and (k+1)-th largest keys are equal (the
+    kernel and torch.topk may then pick different offsets)."""
+    from psa_torch.ops.common import keyed_f32_totals_ops
+
+    keyed, _ = keyed_f32_totals_ops(stats5[:, :4], stats5[:, 4], dtabs.w32,
+                                    dtabs.diff32, dtabs.is_max, noff)
+    if keyed.shape[-1] <= k:
+        return 0
+    top = torch.topk(keyed, k + 1, dim=-1).values
+    return int((top[:, k - 1] == top[:, k]).sum().item())
+
+
+def epilogue_kernel_phase(torch, sw, ep, mesh_mod, dev, encode, random_sequences,
+                          build_tables, device_tables, big):
+    """csrc/epilogue.cu against its plain version on the same card tensors,
+    under `same_pack` (tolerance 0: best's bits, near, the keys at topi,
+    every stats5 column), on the stats5 of every shape the paths give it:
+    the north star in both modes, the batch workload's 1024 rows (per-row
+    and shared Seq1, per-row noff; noff < k; rows with no valid offset),
+    1M x 2,048, 600k x 250k, all-'A' 200,000 x 2,048 (near > k), exact ties
+    of 1 3 4 2 at the k-th key, and the shards of a 4-shard north star,
+    1-D and 2 x 2 (captured from `search_sharded` and `search_sharded_2d`).
+    The north star's and the batch's kernel are timed beside the plain
+    version.  Returns {case: times} or raises AssertionError."""
+    from psa_torch.utils.kernel_lab import cuda_ms
+
+    k = ep.TOPK
+    lib = sw.build_library()
+    assert lib.psa_epilogue_cols() == ep.EPILOGUE_COLS, "csrc/epilogue.cu kCols"
+    w = NORTH_STAR["weights"]
+    tabs = {m: device_tables(build_tables(np.array(w), m), dev) for m in (False, True)}
+    rng = np.random.default_rng(14)
+
+    def stats_of(n1, n2, seed=None, c1=None, c2=None, is_max=False):
+        if c1 is None:
+            a, b = random_sequences(n1, n2, seed=seed)
+            c1, c2 = encode(a), encode(b)
+        noff, _, l2p, l1k = sw.plan_shapes(c1.shape[0], c2.shape[0])
+        d1, d2 = sw.upload_codes(dev, (c1, l1k), (c2, l2p))
+        return sw.sweep(d1, d2, tabs[is_max].code)[None], noff, l2p
+
+    def check(case, stats5, dtabs, noff, l2p, g0=0):
+        before = ep.cuda_launches
+        got = ep.epilogue_pack(stats5, dtabs, noff, l2p, g0=g0)
+        launched = ep.cuda_launches - before
+        want = ep.epilogue_pack_plain(stats5, dtabs, noff, l2p, g0=g0)
+        torch.cuda.synchronize()
+        diff = ep.pack_mismatch(want, got, stats5, noff, dtabs, g0)
+        out, ref = got.cpu().numpy(), want.cpu().numpy()
+        near = out[:, 6 * k]
+        best = out[:, 6 * k + 1].view(np.float32)
+        with np.errstate(invalid="ignore"):
+            gap = np.abs(best - ref[:, 6 * k + 1].view(np.float32))
+        err = max(float(np.abs(near - ref[:, 6 * k]).max()),
+                  float(np.nan_to_num(gap, nan=0.0).max()))
+        worst[0] = max(worst[0], err)
+        rows, np_len = stats5.shape[0], stats5.shape[2]
+        line = {"phase": "epilogue_kernel", "case": case, "rows": rows, "np": np_len,
+                "is_max": dtabs.is_max, "g0": g0,
+                "cuda_launches_per_call": launched,
+                "near_max": int(near.max()), "near_gt_k_rows": int((near > k).sum()),
+                "no_mutation_rows": int(np.isneginf(best).sum()),
+                "kth_tie_rows": kth_tie_rows(torch, stats5, dtabs, noff, k),
+                "max_abs_diff_near_best": err, "mismatch": diff}
+        emit(line)
+        if diff is not None:
+            raise AssertionError(f"epilogue kernel at {case}: {diff}")
+        return line
+
+    times, worst = {}, [0.0]
+
+    def timed(case, stats5, dtabs, noff, l2p):
+        (k_ms, k_q1, k_q3), (k_bb, bb_q1, bb_q3) = kernel_times(
+            torch, lambda: ep.epilogue_pack(stats5, dtabs, noff, l2p), runs=30)
+        p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: ep.epilogue_pack_plain(
+            stats5, dtabs, noff, l2p), runs=10, warm=1)
+        bound_ms, bound_by = epilogue_bound(stats5.shape[0], stats5.shape[2], k)
+        times[case] = dict(ms=k_ms, ms_back_to_back=k_bb, plain_ms=p_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "epilogue_time", "case": case, "rows": stats5.shape[0],
+              "np": stats5.shape[2], "kernel_ms": k_ms, "kernel_ms_iqr": [k_q1, k_q3],
+              "kernel_ms_back_to_back": k_bb, "back_to_back_iqr": [bb_q1, bb_q3],
+              "plain_ms": p_ms, "plain_ms_iqr": [p_q1, p_q3], "bound_ms": bound_ms,
+              "bound_by": bound_by, "runs": 30, "back_to_back": KERNEL_BACK_TO_BACK,
+              "plain_runs": 10})
+
+    t0 = time.perf_counter()
+    for m in (True, False):
+        ns, noff_ns, l2p_ns = stats_of(NORTH_STAR["n1"], NORTH_STAR["n2"],
+                                       seed=NORTH_STAR["seed"], is_max=m)
+        check(f"north_star_{'max' if m else 'min'}", ns, tabs[m], noff_ns, l2p_ns)
+    d1, d2 = big
+    b, l2p_b = d2.shape
+    noff_b = BATCH["n1"] - BATCH["n2"] + 1
+    per_row = torch.full((b,), noff_b, dtype=torch.int32, device=dev)
+    rows = sw.sweep_batched(d1, d2, tabs[False].code)
+    check("batch_per_row", rows, tabs[False], per_row, l2p_b)
+    check("batch_shared_s1", sw.sweep_batched_shared(d1[0].contiguous(), d2,
+                                                     tabs[False].code),
+          tabs[False], per_row, l2p_b)
+    small = torch.from_numpy(rng.integers(1, k, b).astype(np.int32)).to(dev)
+    check("batch_noff_lt_k", rows, tabs[False], small, l2p_b)
+    none = per_row.clone()
+    none[::7] = 0
+    line = check("batch_rows_without_offsets", rows, tabs[False], none, l2p_b)
+    assert line["no_mutation_rows"] == len(range(0, b, 7)), line
+    for case, n1, n2, seed in (("seq1_1M", *LONG_SEQ1.values()),
+                               ("seq2_250k", LONG_SEQ2["n1"], LONG_SEQ2["n2"],
+                                LONG_SEQ2["seed"])):
+        st, noff, l2p = stats_of(n1, n2, seed=seed)
+        check(case, st, tabs[False], noff, l2p)
+    st, noff, l2p = stats_of(0, 0, c1=np.zeros(TIES["n1"], np.int32),
+                             c2=np.zeros(TIES["n2"], np.int32))
+    line = check("all_A_ties", st, tabs[False], noff, l2p)
+    assert line["near_gt_k_rows"] == 1, line
+    ties = torch.from_numpy(np.concatenate(
+        [rng.integers(0, 3, (1, 4, 90_112)),
+         rng.integers(-1, tabs[False].tables.num_ranks, (1, 1, 90_112))],
+        axis=1).astype(np.int32)).to(dev)
+    line = check("integer_weight_ties", ties, tabs[False], 90_000, l2p_ns)
+    assert line["kth_tie_rows"] == 1, line
+    captured = []
+    real = mesh_mod.epilogue_pack
+
+    def record(stats5, dtabs, noff, l2p, k=k, g0=0):
+        captured.append((stats5, dtabs, noff, l2p, g0))
+        return real(stats5, dtabs, noff, l2p, k, g0)
+
+    s1, s2 = random_sequences(NORTH_STAR["n1"], NORTH_STAR["n2"], seed=NORTH_STAR["seed"])
+    c1, c2 = encode(s1), encode(s2)
+    mesh_mod.epilogue_pack = record
+    try:
+        for kind, fn in (("1d", lambda: mesh_mod.search_sharded(
+                              c1, c2, tabs[False].tables, [dev] * 4)),
+                         ("2x2", lambda: mesh_mod.search_sharded_2d(
+                              c1, c2, tabs[False].tables,
+                              mesh_mod.make_mesh_2d([dev] * 4, 2, 2)))):
+            del captured[:]
+            assert winner(fn()) == NORTH_STAR_WINNER, f"4-shard {kind} north star"
+            assert len(captured) == 4, f"4-shard {kind}: {len(captured)} epilogues"
+            for i, (st, dtabs, noff, l2p, g0) in enumerate(captured):
+                check(f"shard_{kind}_{i}", st, dtabs, noff, l2p, g0)
+    finally:
+        mesh_mod.epilogue_pack = real
+    checks_s = time.perf_counter() - t0
+    timed("north_star", ns, tabs[False], noff_ns, l2p_ns)
+    timed("batch_per_row", rows, tabs[False], per_row, l2p_b)
+    st, noff, l2p = stats_of(*LONG_SEQ1.values())
+    timed("seq1_1M", st, tabs[False], noff, l2p)
+    emit({"phase": "epilogue_kernel_summary", "cases_equal": True, "check_seconds": checks_s,
+          "max_abs_diff_near_best": worst[0], "seconds": time.perf_counter() - t0})
+    return times, worst[0]
+
+
+def epilogue_launches_child() -> int:
+    """Body of the `epilogue_launch_count` child process: one warm
+    north-star query through the engine, then one more under the
+    profiler, then the plain epilogue on the query's stats5 in the same
+    profile; prints the device events (kernels, copies, memsets) of each,
+    by name, and the wrapper's count of the query's CUDA launches, as one
+    JSON line.  A new process, since the smoke's own loses
+    the ctypes kernels' events (PERF.md §7)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from psa_torch.core.alphabet import encode
+    from psa_torch.models.search import AlignmentSearchEngine
+    from psa_torch.ops import epilogue as ep
+    from psa_torch.ops import sweep as sw
+    from psa_torch.utils.generator import random_sequences
+
+    s1, s2 = random_sequences(NORTH_STAR["n1"], NORTH_STAR["n2"], seed=NORTH_STAR["seed"])
+    eng = AlignmentSearchEngine(NORTH_STAR["weights"], NORTH_STAR["is_max"])
+    for _ in range(3):
+        eng.search(s1, s2)
+    c1, c2 = encode(s1), encode(s2)
+    noff, _, l2p, l1k = sw.plan_shapes(c1.shape[0], c2.shape[0])
+    dtabs = eng._device_tables()
+    d1, d2 = sw.upload_codes("cuda", (c1, l1k), (c2, l2p))
+    stats5 = sw.sweep(d1, d2, dtabs.code)[None]
+    ep.epilogue_pack_plain(stats5, dtabs, noff, l2p)
+    torch.cuda.synchronize()
+    ep.cuda_launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("query"):
+            got = eng.search(s1, s2)
+            torch.cuda.synchronize()
+        counted = ep.cuda_launches
+        with record_function("plain_epilogue"):
+            ep.epilogue_pack_plain(stats5, dtabs, noff, l2p)
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] in ("query", "plain_epilogue")]
+    out = {r["name"]: {} for r in ranges}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        mid = e["ts"] + e["dur"] / 2
+        for r in ranges:
+            if r["ts"] <= mid <= r["ts"] + r["dur"]:
+                key = f"{e['cat']}: {e['name']}"
+                out[r["name"]][key] = out[r["name"]].get(key, 0) + 1
+    print(json.dumps({"winner": [got.offset, got.char_offset, got.sub_code, got.score],
+                      "counted_cuda_launches": counted, **out}), flush=True)
+    return 0
+
+
+def epilogue_launch_count() -> dict:
+    """The device events of one warm north-star query and of the plain
+    epilogue, from `epilogue_launches_child` in a new process; checks that
+    the query enqueued at most two epilogue kernels, as many as the
+    wrapper counted, and one host-to-device copy."""
+    p = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.epilogue_launches_child())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, f"epilogue_launch_count: rc {p.returncode}: {p.stderr[-2000:]}"
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    query = got.get("query", {})
+    count = {"epilogue_kernels": sum(n for name, n in query.items()
+                                     if name.startswith("kernel") and "epilogue_" in name),
+             "h2d_copies": sum(n for name, n in query.items() if "HtoD" in name),
+             "device_events": sum(query.values()),
+             "plain_epilogue_events": sum(got.get("plain_epilogue", {}).values())}
+    line = {"phase": "epilogue_launch_count", **count, "events": got}
+    emit(line)
+    assert tuple(got["winner"]) == NORTH_STAR_WINNER, f"traced query: {got['winner']}"
+    assert 1 <= count["epilogue_kernels"] <= 2, f"epilogue kernels per query: {count}"
+    assert count["epilogue_kernels"] == got["counted_cuda_launches"], \
+        f"the profiler saw {count['epilogue_kernels']} epilogue kernels, the wrapper " \
+        f"counted {got['counted_cuda_launches']}"
+    assert count["h2d_copies"] == 1, f"host-to-device copies per query: {count}"
+    return line
+
 
 # The serving tier's waves (the batch workload's queries as protocol lines):
 # 8192 per-row queries through the stdin loop at --serve-batch 1024, the same
@@ -1125,6 +1385,9 @@ def serve_phases(torch, sw, v2, v3, native, batch, Query, wide, ns_line, ns_repl
         assert wv["mismatches"] == 0, f"serve_kernels {name}: mismatched replies"
         kernel = "sweep_batched_shared" if name == "tcp_shared_s1" else "sweep_batched"
         assert wv[kernel] > 0, f"serve_kernels {name}: {kernel} never launched"
+        batched = wv["sweep_batched"] + wv["sweep_batched_shared"]
+        assert wv["epilogue"] == batched, \
+            f"serve_kernels {name}: {wv['epilogue']} epilogues for {batched} batched launches"
         assert wv["native_calls"].get("parse_chunk", 0) > 0, f"{name}: the native parser did not run"
         assert wv["native_calls"].get("search", 0) == 0, f"{name}: a host engine answered"
 
@@ -1236,13 +1499,15 @@ def sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, eng_native,
         got = winner(fn())
         launches = read_launches(sw, v2, v3)
         fell = mesh_mod.fallbacks
-        if got != NORTH_STAR_WINNER or launches["sweep"] != shards or fell:
+        if (got != NORTH_STAR_WINNER or launches["sweep"] != shards or fell
+                or launches["epilogue"] != shards):
             raise AssertionError(f"north star sharded {kind} {shape}: {got}, "
                                  f"{launches['sweep']} sweep launches, "
-                                 f"{fell} fallbacks")
+                                 f"{launches['epilogue']} epilogues, {fell} fallbacks")
         med, lo, hi = wall_ms(fn, runs=5)
         runs.append({"mesh": kind, "shape": shape, "shards": shards,
                      "winner": list(got), "sweep_launches": launches["sweep"],
+                     "epilogue_launches": launches["epilogue"],
                      "ms": med, "min": lo, "max": hi})
     med, lo, hi = wall_ms(lambda: eng.search_codes(c1, c2), runs=5)
     emit({"phase": "sharded", "query": "north_star", "runs": 5, "meshes": runs,
@@ -1267,9 +1532,10 @@ def sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, eng_native,
         emit({"phase": "sharded_fallback", "mesh": kind, "n1": TIES["n1"],
               "n2": TIES["n2"], "shards": 4, "winner": list(winner(got)),
               "native": list(winner(want)), "fallbacks": mesh_mod.fallbacks,
-              "sweep_launches": launches["sweep"], "ms": ms})
+              "sweep_launches": launches["sweep"],
+              "epilogue_launches": launches["epilogue"], "ms": ms})
         if not same_bits(got, want) or mesh_mod.fallbacks != 1 \
-                or launches["sweep"] != 8:
+                or launches["sweep"] != 8 or launches["epilogue"] != 4:
             raise AssertionError(f"all-'A' ties through the {kind} mesh: "
                                  f"{winner(got)} vs native {winner(want)}, "
                                  f"{mesh_mod.fallbacks} fallbacks")
@@ -1293,17 +1559,19 @@ def sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, eng_native,
         fell = mesh_mod.fallbacks
         med, lo, hi = wall_ms(fn, runs=3, warm=0)
         long[tag] = dict(result=r, first_ms=first, ms=med, min=lo, max=hi,
-                         sweep_launches=launches["sweep"], fallbacks=fell)
-        if launches["sweep"] < shards:
+                         sweep_launches=launches["sweep"],
+                         epilogue_launches=launches["epilogue"], fallbacks=fell)
+        if launches["sweep"] < shards or launches["epilogue"] != shards:
             raise AssertionError(f"600k x 250k through {tag} launched sweep "
-                                 f"{launches['sweep']} times")
+                                 f"{launches['sweep']} times, the epilogue "
+                                 f"{launches['epilogue']}")
     t0 = time.perf_counter()
     want = eng_native.search_codes(c1l, c2l)
     native_ms = (time.perf_counter() - t0) * 1e3
     _, _, l2p, l1k = sw.plan_shapes(c1l.shape[0], c2l.shape[0])
     dtabs = device_tables_cached(tables, cuda0)
-    packed, _ = batch.run_exact(sw.upload_codes(c1l, l1k, cuda0),
-                                sw.upload_codes(c2l, l2p, cuda0), noff, dtabs)
+    packed, _ = batch.run_exact(*sw.upload_codes(cuda0, (c1l, l1k), (c2l, l2p)), noff,
+                                dtabs)
     near = int(batch.unpack_epilogue_outputs(packed.cpu().numpy(), batch.TOPK)[2][0])
     emit({"phase": "long_seq2", "n1": LONG_SEQ2["n1"], "n2": LONG_SEQ2["n2"],
           "pair_evals": float(noff) * LONG_SEQ2["n2"],
@@ -1313,7 +1581,8 @@ def sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, eng_native,
           **{tag: {"winner": list(winner(v["result"])),
                    "equal_bits": same_bits(v["result"], want),
                    **{k: v[k] for k in ("first_ms", "ms", "min", "max",
-                                        "sweep_launches", "fallbacks")}}
+                                        "sweep_launches", "epilogue_launches",
+                                        "fallbacks")}}
              for tag, v in long.items()}})
     for tag, v in long.items():
         if not same_bits(v["result"], want):
@@ -1330,9 +1599,10 @@ def sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, eng_native,
               "mesh": 4, "equal_unsharded": got == bres[name], **launches,
               "ms": med, "min": lo, "max": hi, "unsharded_ms": umed,
               "unsharded_min": ulo, "unsharded_max": uhi, "runs": 5})
-        if got != bres[name] or launches[kernel] != 4:
+        if got != bres[name] or launches[kernel] != 4 or launches["epilogue"] != 4:
             raise AssertionError(f"sharded batch {name}: equal {got == bres[name]}, "
-                                 f"{launches[kernel]} {kernel} launches")
+                                 f"{launches[kernel]} {kernel} launches, "
+                                 f"{launches['epilogue']} epilogues")
 
 
 DIST_CMD = [sys.executable, "-m", "psa_torch.utils.launcher", "-np", "2"]
@@ -1554,7 +1824,8 @@ def engines_phase(torch, sw, v2, v3, native, dev, s1, s2, ns_file: Path, ns_byte
                   "winner": list(winner(r)), **launches})
             assert winner(r) == NORTH_STAR_WINNER, \
                 f"north star through {backend}: {winner(r)} != {NORTH_STAR_WINNER}"
-            assert sum(launches.values()) == 0, f"{backend} launched a sweep kernel"
+            assert sum(launches.values()) == 0, \
+                f"{backend} launched a sweep or epilogue kernel"
 
         rng = np.random.default_rng(300)
         shapes = []
@@ -1730,7 +2001,7 @@ def library_calls_phase(torch, sw, v2, v3, dev, tables, big1, big2, rng):
     c1 = random_codes(rng, 100_000)
     c2 = random_codes(rng, 10_000)
     noff, _, l2p, l1k = sw.plan_shapes(c1.shape[0], c2.shape[0])
-    d1, d2 = sw.upload_codes(c1, l1k, dev), sw.upload_codes(c2, l2p, dev)
+    d1, d2 = sw.upload_codes(dev, (c1, l1k), (c2, l2p))
     measure("sweep", lambda: sw.sweep(d1, d2, code),
             lambda: sw.sweep(d1, d2, code)[:, :noff],
             lambda: (ec.onehot_seq1(d1[: c1.shape[0]])[None],
@@ -1756,7 +2027,7 @@ def library_calls_phase(torch, sw, v2, v3, dev, tables, big1, big2, rng):
     c1 = random_codes(rng, LAB["n1"])
     c2 = random_codes(rng, LAB["n2"])
     noff, _, l2p, l1k = v2.plan_shapes_v2(c1.shape[0], c2.shape[0])
-    d1, d2 = sw.upload_codes(c1, l1k, dev), sw.upload_codes(c2, l2p, dev)
+    d1, d2 = sw.upload_codes(dev, (c1, l1k), (c2, l2p))
     lab_build = lambda: (ec.onehot_seq1(d1[: c1.shape[0]])[None],  # noqa: E731
                          ec.indicator_filter(code, d2[: c2.shape[0]], nr), 1, (4 + nr, -1))
     for name, fn in (("sweep_v2", v2.sweep_v2), ("sweep_v3", v3.sweep_v3)):
@@ -1891,7 +2162,9 @@ def sharded_xla_phase(torch, sw, v2, v3, mesh_mod, tables, c1, c2, dev, ns_file:
           "fallbacks": mesh_mod.fallbacks, "ms": ms, **launches,
           "cli_rc": rc, "cli_bytes_equal": cli_equal, "cli_seconds": secs})
     assert winner(r) == NORTH_STAR_WINNER, f"sharded xla: {winner(r)}"
-    assert sum(launches.values()) == 0, "the xla shards launched a sweep kernel"
+    assert sweep_launches(launches) == 0, "the xla shards launched a sweep kernel"
+    assert launches["epilogue"] == len(mesh), \
+        f"the xla shards launched the epilogue {launches['epilogue']} times"
     assert cli_equal, "psa-torch --sharded --backend xla differs"
 
 
@@ -1914,7 +2187,9 @@ def main() -> int:
     from psa_torch.models.search import AlignmentSearchEngine
     from psa_torch.ops import _sweep_v2 as v2
     from psa_torch.ops import _sweep_v3 as v3
+    from psa_torch.ops import epilogue as ep
     from psa_torch.ops import sweep as sw
+    from psa_torch.parallel import mesh as mesh_mod
     from psa_torch.utils import generator, kernel_lab
     from psa_torch.utils.generator import random_sequences, write_input_file
     from psa_torch.utils.kernel_lab import cuda_ms, dispatch_ms
@@ -1958,6 +2233,14 @@ def main() -> int:
         max_abs = sweep_checks(torch, sw, code, dev)
         batched_abs, (big1, big2) = batched_kernel_checks(torch, sw, code, dev)
         lab_abs = lab_kernel_checks(torch, sw, v2, v3, code, dev)
+        # 3a. the epilogue kernel at every shape the paths give it, and the
+        # device events of one warm north-star query in a new process
+        t_ep = time.perf_counter()
+        ep_times, ep_err = epilogue_kernel_phase(torch, sw, ep, mesh_mod, dev, encode,
+                                         random_sequences, build_tables, device_tables,
+                                         (big1, big2))
+        ep_count = epilogue_launch_count()
+        emit({"phase": "epilogue_phases_elapsed", "seconds": time.perf_counter() - t_ep})
     except AssertionError as e:
         return fail(str(e))
 
@@ -2042,6 +2325,13 @@ def main() -> int:
           "native_calls": single_native})
     if single_launches["sweep"] < 1 + len(queries):
         return fail("the single-query path did not go through the sweep kernel")
+    if single_launches["epilogue"] != 1 + len(queries):
+        return fail(f"the single-query path ran the epilogue kernel "
+                    f"{single_launches['epilogue']} times for {1 + len(queries)} queries")
+    if not (single_launches["epilogue"] <= single_launches["epilogue_cuda_launches"]
+            <= 2 * single_launches["epilogue"]):
+        return fail(f"{single_launches['epilogue_cuda_launches']} CUDA launches for "
+                    f"{single_launches['epilogue']} epilogue calls")
     if single_native.get("rescore_batch", 0) < 1 + len(queries):
         return fail("host selection of the single-query path did not run native")
 
@@ -2064,9 +2354,10 @@ def main() -> int:
         if got != NORTH_STAR_WINNER:
             return fail(f"north star through {tag}: {got} != {NORTH_STAR_WINNER}")
         on_card = tag in ("torch", "auto", "hybrid_50", "hybrid_100")
-        if launches["sweep"] != (1 if on_card else 0):
+        if launches["sweep"] != (1 if on_card else 0) \
+                or launches["epilogue"] != launches["sweep"]:
             return fail(f"north star through {tag} launched sweep "
-                        f"{launches['sweep']} times")
+                        f"{launches['sweep']} times, the epilogue {launches['epilogue']}")
         if on_card and calls.get("rescore_batch", 0) != 1:
             return fail(f"host selection of {tag} did not run native")
         if not on_card and calls.get("search", 0) != 1:
@@ -2098,6 +2389,9 @@ def main() -> int:
           "native_calls": batch_native})
     if batch_launches["sweep_batched"] < 1 or batch_launches["sweep_batched_shared"] < 1:
         return fail("the batch path did not go through both batched kernels")
+    if batch_launches["epilogue"] != (batch_launches["sweep_batched"]
+                                      + batch_launches["sweep_batched_shared"]):
+        return fail("the batch path did not run one epilogue kernel per batched launch")
     if min(batch_native.get(k, 0) for k in ("rescore_multi", "encode_padded")) < 1:
         return fail("the batch path's host prep or selection did not run native")
     emit({"phase": "batch_8_microbatches", "queries": len(wide),
@@ -2167,8 +2461,9 @@ def main() -> int:
     emit({"phase": "main_path_launches", "path": "batch_file", "cases": len(file_cases),
           "buckets": len(buckets), "batched_launches_expected": want_launches,
           **file_launches})
-    if got_launches != want_launches:
-        return fail(f"search_batch took {got_launches} batched launches on the "
+    if got_launches != want_launches or file_launches["epilogue"] != want_launches:
+        return fail(f"search_batch took {got_launches} batched launches and "
+                    f"{file_launches['epilogue']} epilogues on the "
                     f"{len(file_cases)}-case file, not {want_launches}")
 
     # 4c. the kernel-lab path: its command line once, beside this process's
@@ -2205,8 +2500,6 @@ def main() -> int:
     # 1-8 shards of the one card (1-D and 2-D), the all-'A' fallback, 600k x
     # 250k through `torch` and a 4-shard mesh against native, the batch
     # workload sharded over 4, then two ranks on the card and --sharded
-    from psa_torch.parallel import mesh as mesh_mod
-
     t_par = time.perf_counter()
     try:
         sharded_phases(torch, sw, v2, v3, mesh_mod, batch, eng, ns_engines["native"],
@@ -2242,8 +2535,7 @@ def main() -> int:
         c1 = random_codes(rng, n1)
         c2 = random_codes(rng, n2)
         noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
-        d1 = sw.upload_codes(c1, l1k, dev)
-        d2 = sw.upload_codes(c2, l2p, dev)
+        d1, d2 = sw.upload_codes(dev, (c1, l1k), (c2, l2p))
         (k_ms, k_q1, k_q3), (k_bb, bb_q1, bb_q3) = kernel_times(
             torch, lambda: sw.sweep(d1, d2, code), runs=20)
         p_ms, p_q1, p_q3 = cuda_ms(torch, lambda: sw.sweep_plain(d1, d2, code),
@@ -2271,15 +2563,13 @@ def main() -> int:
     for it in range(12):
         torch.cuda.synchronize()
         t = [time.perf_counter()]
-        d1 = sw.upload_codes(c1n, l1k, dev)
-        d2 = sw.upload_codes(c2n, l2p, dev)
+        d1, d2 = sw.upload_codes(dev, (c1n, l1k), (c2n, l2p))
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         stats5 = sw.sweep(d1, d2, dtabs.code)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        packed = batch.pack_epilogue_outputs(*batch.exact_topk_epilogue_rows(
-            stats5[None], dtabs, noff, l2p))
+        packed = ep.epilogue_pack(stats5[None], dtabs, noff, l2p)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         buf = packed.cpu().numpy()
@@ -2328,8 +2618,8 @@ def main() -> int:
         long_ms[tag] = wall_ms(lambda: eng_l.search(s1l, s2l), runs=3, warm=0)
     c1l, c2l = encode(s1l), encode(s2l)
     noff_l, _, l2p_l, l1k_l = sw.plan_shapes(c1l.shape[0], c2l.shape[0])
-    packed_l, _ = batch.run_exact(sw.upload_codes(c1l, l1k_l, dev),
-                                  sw.upload_codes(c2l, l2p_l, dev), noff_l, dtabs)
+    packed_l, _ = batch.run_exact(*sw.upload_codes(dev, (c1l, l1k_l), (c2l, l2p_l)),
+                                  noff_l, dtabs)
     near_l = int(batch.unpack_epilogue_outputs(packed_l.cpu().numpy(), batch.TOPK)[2][0])
     lt, ln = long_res["torch"], long_res["native"]
     long_equal = ((lt.offset, lt.char_offset, lt.sub_code) == (ln.offset, ln.char_offset,
@@ -2466,8 +2756,8 @@ def main() -> int:
     for name, n1, n2 in (("bench", LAB["n1"], LAB["n2"]),
                          ("north_star", 100_000, 10_000)):
         noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
-        d1 = sw.upload_codes(random_codes(rng, n1), l1k, dev)
-        d2 = sw.upload_codes(random_codes(rng, n2), l2p, dev)
+        d1, d2 = sw.upload_codes(dev, (random_codes(rng, n1), l1k),
+                                 (random_codes(rng, n2), l2p))
         for kernel, mod, fn, plain, compiled in (
                 ("sweep_v2", v2, v2.sweep_v2, v2.sweep_v2_plain,
                  "sweep_mma_kernel"),
@@ -2537,7 +2827,15 @@ def main() -> int:
           for kernel, source, replaces in (
               ("sweep_v2", "psa_torch/csrc/sweep_mma.cu", "psa_tpu/ops/_sweep_v2.py:86"),
               ("sweep_v3", "psa_torch/csrc/sweep_mma_v3.cu",
-               "psa_tpu/ops/_sweep_v3.py:101")))]})
+               "psa_tpu/ops/_sweep_v3.py:101"))),
+        {"name": "epilogue", "route": "cuda", "source": "psa_torch/csrc/epilogue.cu",
+         "replaces": "psa_tpu/models/batch.py:643 (XLA code, not a Pallas kernel)",
+         "launches": single_launches["epilogue"],
+         "cuda_launches": single_launches["epilogue_cuda_launches"],
+         "cuda_launches_per_north_star_query": ep_count["epilogue_kernels"],
+         "max_abs_err": ep_err, "max_abs_diff": ep_err, "compared_by": "same_pack",
+         "shape": "1x5x90112", "device_events_per_query": ep_count["device_events"],
+         **ep_times["north_star"], "library_ms": None}]})
     # 7. last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

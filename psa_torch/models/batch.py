@@ -53,7 +53,10 @@ from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    device_tables_cached, f32_band_epsilon)
 from psa_torch.models.search import (DEVICE_BACKENDS, AlignmentSearchEngine,
                                      pair_evals, resolve_device)
-from psa_torch.ops.common import keyed_f32_totals_ops
+from psa_torch.ops.epilogue import (TOPK, epilogue_pack,
+                                    exact_topk_epilogue_rows,
+                                    pack_epilogue_outputs,
+                                    unpack_epilogue_outputs)
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
 from psa_torch.ops.sweep import (bucket_shape, offset_stats, plan_bucket,
@@ -68,61 +71,15 @@ __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
            "batched_search_exact_sharded_async", "search_batch",
            "search_batch_async"]
 
-TOPK = 32
-
-
-def exact_topk_epilogue_rows(stats5: torch.Tensor, dtabs: DeviceTables,
-                             noff: int, l2p: int, k: int = TOPK):
-    """Rows-layout checkable-exact epilogue.
-
-    stats5: (..., 5, NP) int32 — rows 0-3 class counts, row 4 maxrank;
-    noff: the real offset count, an int or a per-row (...,) tensor.
-    Returns (topi (..., k) int32, stats_k (..., 5, k), near (...,),
-    best (...,) f32).  torch.topk orders equal keys differently from
-    lax.top_k; that cannot change a winner, because every band member is in
-    the top k whenever near <= k, and near > k makes the host fall back.
-    """
-    keyed, _ = keyed_f32_totals_ops(stats5[..., :4, :], stats5[..., 4, :],
-                                    dtabs.w32, dtabs.diff32, dtabs.is_max,
-                                    noff)
-    best = keyed.amax(dim=-1)
-    near = (keyed >= (best - dtabs.eps(l2p)).unsqueeze(-1)).sum(-1)
-    topi = torch.topk(keyed, k, dim=-1).indices
-    idx = topi.unsqueeze(-2).expand(*stats5.shape[:-1], k)
-    stats_k = torch.gather(stats5, -1, idx)
-    return topi.to(torch.int32), stats_k, near, best
-
-
-def pack_epilogue_outputs(topi, stats_k, near, best) -> torch.Tensor:
-    """Pack the epilogue outputs into ONE int32 array (B, 6k+2), so that one
-    fetch brings them to the host.  Layout per row:
-    [topi (k) | stats5 (5k) | near | best_bits_f32]."""
-    b, k = topi.shape
-    return torch.cat([topi.to(torch.int32),
-                      stats_k.reshape(b, 5 * k).to(torch.int32),
-                      near.to(torch.int32).reshape(b, 1),
-                      best.to(torch.float32).contiguous()
-                      .view(torch.int32).reshape(b, 1)], dim=1)
-
-
-def unpack_epilogue_outputs(buf: np.ndarray, k: int):
-    """Host-side inverse of `pack_epilogue_outputs` (numpy)."""
-    topi = buf[:, :k]
-    stats_k = buf[:, k:6 * k].reshape(buf.shape[0], 5, k)
-    near = buf[:, 6 * k]
-    best = buf[:, 6 * k + 1].view(np.float32)
-    return topi, stats_k, near, best
-
 
 def run_exact(c1d: torch.Tensor, c2d: torch.Tensor, noff: int,
               dtabs: DeviceTables, k: int = TOPK):
-    """Device half of one query: the sweep's stats5 -> top-k epilogue.
+    """Device half of one query: the sweep's stats5 -> the top-k epilogue
+    and pack (ops/epilogue.epilogue_pack: the kernel on the card).
     Returns (packed (1, 6k+2) int32, stats5 (5, noff_pad)); both stay on
     the device."""
     stats5 = sweep(c1d, c2d, dtabs.code)
-    packed = pack_epilogue_outputs(
-        *exact_topk_epilogue_rows(stats5[None], dtabs, noff, c2d.shape[0], k))
-    return packed, stats5
+    return epilogue_pack(stats5[None], dtabs, noff, c2d.shape[0], k), stats5
 
 
 def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
@@ -155,15 +112,14 @@ def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
 
 def search_exact(codes1: np.ndarray, codes2: np.ndarray, dtabs: DeviceTables,
                  k: int = TOPK) -> SearchResult | None:
-    """One query end to end on `dtabs`' device: one upload per sequence,
-    the sweep and epilogue, one fetch, host selection."""
+    """One query end to end on `dtabs`' device: one upload of both
+    sequences (one pinned buffer on the card), the sweep and epilogue, one
+    fetch, host selection."""
     codes1 = np.asarray(codes1, np.int32)
     codes2 = np.asarray(codes2, np.int32)
     noff, _, l2p, l1k = plan_shapes(codes1.shape[0], codes2.shape[0])
-    device = dtabs.code.device
-    packed, stats5 = run_exact(upload_codes(codes1, l1k, device),
-                               upload_codes(codes2, l2p, device), noff,
-                               dtabs, k)
+    c1d, c2d = upload_codes(dtabs.code.device, (codes1, l1k), (codes2, l2p))
+    packed, stats5 = run_exact(c1d, c2d, noff, dtabs, k)
     return host_select(codes1, codes2, noff, dtabs.tables,
                        packed.cpu().numpy(), stats5, k)
 
@@ -208,9 +164,9 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
                     shared_s1: bool = False, fused: bool = True):
     """Device half of one microbatch: the stats5 (one batched launch; the
     shared-Seq1 kernel when c1d is one (l1k,) row; with fused=False one
-    `sweep` launch per query, a cross-check path), the batched top-k
-    epilogue and the pack.  Returns the packed (n, 6k+2) int32 buffer on
-    the device."""
+    `sweep` launch per query, a cross-check path), then the top-k epilogue
+    and pack of every row (ops/epilogue.epilogue_pack).  Returns the packed
+    (n, 6k+2) int32 buffer on the device."""
     if shared_s1:
         stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
     elif fused:
@@ -218,8 +174,7 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
     else:
         stats5 = torch.stack([sweep(c1d[r], c2d[r], dtabs.code)
                               for r in range(c2d.shape[0])])
-    return pack_epilogue_outputs(*exact_topk_epilogue_rows(
-        stats5, dtabs, noffd, c2d.shape[1], k))
+    return epilogue_pack(stats5, dtabs, noffd, c2d.shape[1], k)
 
 
 @dataclasses.dataclass

@@ -93,15 +93,30 @@ def plan_bucket(noffs, l2p: int):
     return noff_pad, noff_pad + l2p
 
 
-def upload_codes(codes: np.ndarray, length: int, device) -> torch.Tensor:
-    """Codes padded with PAD_CODE to `length` as a uint8 tensor on `device`:
-    the padding happens on the host, so the upload is one copy."""
-    codes = np.asarray(codes)
-    if codes.shape[0] > length:
-        raise ValueError(f"sequence length {codes.shape[0]} exceeds padded length {length}")
-    buf = np.full(length, PAD_CODE, np.uint8)
-    buf[: codes.shape[0]] = codes
-    return torch.from_numpy(buf).to(device)
+def upload_codes(device, *seqs) -> tuple[torch.Tensor, ...]:
+    """Upload (codes, length) sequences, each padded with PAD_CODE to its
+    length, as views of one uint8 buffer on `device`: the padding happens on
+    the host, so the upload is one copy.  On the card the host buffer is
+    pinned and the copy asynchronous (the caching host allocator holds the
+    buffer until the stream has run it).  A view starts at the sum of the
+    lengths before it: with Seq1 padded to l1k, a multiple of L2_ALIGN on
+    every path, Seq2 keeps the sweeps' 16-byte alignment."""
+    device = torch.device(device)
+    seqs = [(np.asarray(codes), length) for codes, length in seqs]
+    for codes, length in seqs:
+        if codes.shape[0] > length:
+            raise ValueError(f"sequence length {codes.shape[0]} exceeds padded "
+                             f"length {length}")
+    ends = np.cumsum([length for _, length in seqs]).tolist()
+    starts = [0, *ends[:-1]]
+    host = torch.empty(ends[-1], dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    buf.fill(PAD_CODE)
+    for (codes, _), at in zip(seqs, starts):
+        buf[at: at + codes.shape[0]] = codes
+    dev = host if device.type == "cpu" else host.to(device, non_blocking=True)
+    return tuple(dev[a:b] for a, b in zip(starts, ends))
 
 
 def _build_tag() -> str:
@@ -176,8 +191,19 @@ def build_library() -> ctypes.CDLL:
     for fn in (lib.psa_sweep_tile, lib.psa_sweep_align, lib.psa_sweep_seg,
                lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk,
                lib.psa_sweep_batched_plan, lib.psa_sweep_plan,
-               lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan):
+               lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan,
+               lib.psa_epilogue_cols):
         fn.restype = ctypes.c_int
+    lib.psa_epilogue_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.psa_epilogue_launch.restype = ctypes.c_int
+    lib.psa_epilogue_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_int]
+    lib.psa_epilogue_scratch_words.restype = ctypes.c_longlong
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p
     if ((lib.psa_sweep_tile(), lib.psa_sweep_align(), lib.psa_sweep_seg(),
@@ -476,8 +502,7 @@ def stats_via(sweep_fn, plan, codes1: np.ndarray, codes2: np.ndarray,
     codes2 = np.asarray(codes2)
     noff, _, l2p, l1k = plan(codes1.shape[0], codes2.shape[0])
     code = torch.from_numpy(np.ascontiguousarray(tables.code)).to(device)
-    out = sweep_fn(upload_codes(codes1, l1k, device),
-                   upload_codes(codes2, l2p, device), code)
+    out = sweep_fn(*upload_codes(device, (codes1, l1k), (codes2, l2p)), code)
     st = out[:, :noff].cpu().numpy()
     return st[:4].T.copy(), st[4].copy()
 

@@ -43,10 +43,8 @@ from psa_torch.core.alphabet import pad_codes
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (ScoringTables, device_tables_cached,
                                    f32_band_epsilon)
-from psa_torch.models.batch import (TOPK, exact_topk_epilogue_rows,
-                                    pack_epilogue_outputs,
-                                    unpack_epilogue_outputs)
 from psa_torch.ops.common import keyed_f32_totals_ops, round_up
+from psa_torch.ops.epilogue import TOPK, epilogue_pack, unpack_epilogue_outputs
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
 from psa_torch.ops.sweep import L2_ALIGN, TILE_O, sweep, upload_codes
@@ -139,13 +137,14 @@ def pad_for_mesh_2d(codes1: np.ndarray, codes2: np.ndarray, n_op: int,
 
 
 def _place(devices, tables: ScoringTables, c1p, c2p) -> dict:
-    """One upload of each padded sequence and the tables per distinct
-    device: device -> (c1d, c2d, DeviceTables)."""
+    """One upload of both padded sequences (one buffer, pinned on the card:
+    ops/sweep.upload_codes) and the tables per distinct device: device ->
+    (c1d, c2d, DeviceTables)."""
     placed = {}
     for dev in devices:
         if dev not in placed:
-            placed[dev] = (upload_codes(c1p, c1p.shape[0], dev),
-                           upload_codes(c2p, c2p.shape[0], dev),
+            placed[dev] = (*upload_codes(dev, (c1p, c1p.shape[0]),
+                                         (c2p, c2p.shape[0])),
                            device_tables_cached(tables, dev))
     return placed
 
@@ -207,11 +206,10 @@ def sharded_offset_stats(codes1p: np.ndarray, codes2p: np.ndarray,
 def _shard_pack(stats5: torch.Tensor, dtabs, noff: int, g0: int,
                 width: int, l2p: int) -> torch.Tensor:
     """One shard's (1, 6k+2) pack: the top-k epilogue on its block of
-    `width` offsets starting at global offset g0, with global offsets."""
+    `width` offsets starting at global offset g0, with global offsets
+    (ops/epilogue.epilogue_pack: the kernel on the card)."""
     noff_local = min(max(noff - g0, 0), width)
-    topi, stats_k, near, best = exact_topk_epilogue_rows(
-        stats5[None], dtabs, noff_local, l2p)
-    return pack_epilogue_outputs(topi + g0, stats_k, near, best)
+    return epilogue_pack(stats5[None], dtabs, noff_local, l2p, TOPK, g0)
 
 
 def _select_from_shard_topk(buf: np.ndarray, noff: int, l2p: int,

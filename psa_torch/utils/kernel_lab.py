@@ -246,8 +246,8 @@ def main(argv: list[str] | None = None) -> int:
             return 1
 
     code = torch.from_numpy(tables.code).to(dev)
-    d1 = upload_codes(c1, l1k, dev)
-    rolled = [upload_codes(np.roll(c2, i), l2p, dev) for i in range(args.iters)]
+    (d1,) = upload_codes(dev, (c1, l1k))
+    rolled = [upload_codes(dev, (np.roll(c2, i), l2p))[0] for i in range(args.iters)]
     sweep(d1, rolled[0], code)                  # builds the library, warms it
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)

@@ -101,8 +101,8 @@ def run_tree(tree: str) -> dict:
     rng = np.random.default_rng(7)
     for shape, (n1, n2) in SHAPES.items():
         noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(n1, n2)
-        d1 = sw.upload_codes(rng.integers(0, 26, n1), l1k, "cuda")
-        d2 = sw.upload_codes(rng.integers(0, 26, n2), l2p, "cuda")
+        d1, d2 = sw.upload_codes("cuda", (rng.integers(0, 26, n1), l1k),
+                                 (rng.integers(0, 26, n2), l2p))
         for kernel, fn, plain in (("sweep_v2", v2.sweep_v2, v2.sweep_v2_plain),
                                   ("sweep_v3", v3.sweep_v3, v3.sweep_v3_plain)):
             got = fn(d1, d2, code)

@@ -100,8 +100,7 @@ def test_massive_tie_fallback_matches_jax():
     c2 = np.tile(np.array([0, 1], np.int32), 64)
     tables = build_tables(w, False)
     noff, _, l2p, l1k = sw.plan_shapes(c1.shape[0], c2.shape[0])
-    stats5 = sw.sweep(sw.upload_codes(c1, l1k, "cpu"),
-                      sw.upload_codes(c2, l2p, "cpu"),
+    stats5 = sw.sweep(*sw.upload_codes("cpu", (c1, l1k), (c2, l2p)),
                       torch.from_numpy(tables.code))
     _, _, near, _ = batch.exact_topk_epilogue_rows(
         stats5[None], device_tables(tables, "cpu"), noff, l2p)

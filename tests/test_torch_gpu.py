@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the CUDA sweep kernels against
-their plain PyTorch versions, the engine, the batch path, the TCP serving
+"""Tests of the port that need the card: the CUDA sweep kernels and the
+top-k epilogue kernel against their plain PyTorch versions, the engine, the batch path, the TCP serving
 tier and the kernel lab on the card against the host oracle.
 They skip without a CUDA device.  This file imports neither JAX nor psa_tpu,
 so it also runs where JAX is not installed:
@@ -22,7 +22,9 @@ from psa_torch.models import batch
 from psa_torch.models.search import AlignmentSearchEngine
 from psa_torch.ops import _sweep_v2 as v2
 from psa_torch.ops import _sweep_v3 as v3
+from psa_torch.ops import epilogue as ep
 from psa_torch.ops import sweep as sw
+from psa_torch.parallel import mesh
 from psa_torch.utils import kernel_lab
 from psa_torch.utils import server
 from psa_torch.utils.generator import random_sequences
@@ -53,8 +55,8 @@ def test_kernel_matches_plain(cuda, n1, n2, other):
     rng = np.random.default_rng(n1 + n2)
     tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
     noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
-    d1 = sw.upload_codes(codes(rng, n1, other), l1k, cuda)
-    d2 = sw.upload_codes(codes(rng, n2, other), l2p, cuda)
+    d1, d2 = sw.upload_codes(cuda, (codes(rng, n1, other), l1k),
+                             (codes(rng, n2, other), l2p))
     code = torch.from_numpy(tables.code).to(cuda)
     before = sw.launches
     got = sw.sweep(d1, d2, code)
@@ -93,8 +95,7 @@ def test_sweep_at_split_edges(cuda, case):
         assert card["units"] <= card["workers"] < card["units"] + 4
     code = torch.from_numpy(build_tables(np.array([2.0, 1.0, 5.0, 0.5]),
                                          True).code).to(cuda)
-    d1 = sw.upload_codes(c1, l1k, cuda)
-    d2 = sw.upload_codes(c2, l2p, cuda)
+    d1, d2 = sw.upload_codes(cuda, (c1, l1k), (c2, l2p))
     got = sw.sweep(d1, d2, code)
     torch.cuda.synchronize()
     assert torch.equal(got, sw.sweep_plain(d1, d2, code))
@@ -199,8 +200,7 @@ def test_lab_kernels_match_plain(cuda, variant, n1, n2, other, edge):
     assert {k: card[k] for k in ("tiles", "chunks", "segs", "blocks", "most_chunks")} == {
         k: model[k] for k in ("tiles", "chunks", "segs", "blocks", "most_chunks")}
     assert EDGE_HOLDS.get((variant, edge), lambda p: True)(card)
-    d1 = sw.upload_codes(c1, l1k, cuda)
-    d2 = sw.upload_codes(c2, l2p, cuda)
+    d1, d2 = sw.upload_codes(cuda, (c1, l1k), (c2, l2p))
     code = torch.from_numpy(table).to(cuda)
     before = getattr(mod, count)
     got = sweep(d1, d2, code)
@@ -539,3 +539,77 @@ def test_conv_integer_check_raises_on_the_card(cuda):
         engine_conv.stats5_from_conv(engine_conv.conv1d_f32(x * 0.3, k)[0])
     exact = engine_conv.stats5_from_conv(engine_conv.conv1d_f32(x, k)[0])
     assert exact.dtype == torch.int32 and exact.is_cuda
+
+
+# (rows, NP, noff, count range, weights, is_max, g0): one block per row
+# (the batch path's one launch), several blocks (two launches), exact key
+# ties at 1 3 4 2, all keys equal (every block's candidates tie at the
+# row's k-th key), noff < k, a row with no valid offset, a shard's g0
+EPILOGUE_CASES = {
+    "batch_rows_per_row_noff": (1024, 1792, "per_row", 128, (1.0, 3.0, 4.0, 2.0), False, 0),
+    "north_star_width": (1, 90_112, 90_001, 2500, (2.0, 1.0, 5.0, 0.5), True, 0),
+    "ties_1M": (1, 998_400, 998_000, 3, (1.0, 3.0, 4.0, 2.0), False, 0),
+    "all_equal": (2, 200_000, 199_000, 1, (1.0, 3.0, 4.0, 2.0), False, 0),
+    "noff_lt_k": (3, 256, 7, 100, (1.0, 3.0, 4.0, 2.0), True, 0),
+    "no_valid_offset": (2, 6000, 0, 100, (1.0, 3.0, 4.0, 2.0), False, 0),
+    "shard_g0": (1, 22_528, 20_000, 500, (1.0, 3.0, 4.0, 2.0), False, 67_584),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
+def test_epilogue_kernel_matches_plain(cuda, case):
+    """csrc/epilogue.cu against its plain version on the same card
+    tensors, under `same_pack`: best's bits, near, the keys at topi, the
+    stats5 columns and distinct in-range indices."""
+    b, np_len, noff, hi, w, is_max, g0 = EPILOGUE_CASES[case]
+    rng = np.random.default_rng(np_len + b)
+    t = build_tables(np.array(w), is_max)
+    st = np.concatenate([rng.integers(0, hi, (b, 4, np_len)),
+                         rng.integers(-1, t.num_ranks, (b, 1, np_len))],
+                        axis=1).astype(np.int32)
+    if case == "all_equal":
+        st[:, :4] = 0
+        st[:, 4] = 0
+    if noff == "per_row":
+        noff = torch.from_numpy(rng.integers(1, np_len + 1, b).astype(np.int32)).to(cuda)
+    dt = device_tables(t, cuda)
+    d = torch.from_numpy(st).to(cuda)
+    before = ep.launches, ep.cuda_launches
+    got = ep.epilogue_pack(d, dt, noff, 512, g0=g0)
+    torch.cuda.synchronize()
+    assert (ep.launches, ep.cuda_launches) == (
+        before[0] + 1, before[1] + (1 if np_len <= ep.EPILOGUE_COLS else 2))
+    want = ep.epilogue_pack_plain(d, dt, noff, 512, g0=g0)
+    assert ep.pack_mismatch(want, got, st, noff, dt, g0) is None
+    if case == "all_equal":
+        assert (got[:, 6 * ep.TOPK].cpu() == np_len - 1000).all()
+
+
+def test_epilogue_kernel_on_the_device_paths(cuda):
+    """The single query, a batch and a sharded query each run the kernel:
+    one epilogue launch per query, per microbatch and per shard."""
+    rng = np.random.default_rng(3)
+    c1, c2 = codes(rng, 30_000, False), codes(rng, 900, False)
+    eng = AlignmentSearchEngine((1, 3, 4, 2), False)
+    before = ep.launches
+    want = eng.search_codes(c1, c2)
+    assert ep.launches == before + 1
+    assert mesh.search_sharded(c1, c2, eng.tables, [cuda] * 4) == want
+    assert ep.launches == before + 5
+    qs = [Query(np.array([1.0, 3.0, 4.0, 2.0]), *random_sequences(2048, 512, seed=s), False)
+          for s in range(8)]
+    assert len(batch.search_batch(qs)) == 8
+    assert ep.launches == before + 6
+
+
+def test_epilogue_kernel_refuses_bad_operands(cuda):
+    """The wrapper raises before a launch on what the kernel does not take:
+    NP < k, a non-contiguous offset axis, a noff tensor of another type."""
+    dt = device_tables(build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False), cuda)
+    st = torch.zeros((2, 5, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ep.epilogue_pack(st[..., :16], dt, 16, 64)
+    with pytest.raises(ValueError):
+        ep.epilogue_pack(st.transpose(1, 2).contiguous().transpose(1, 2), dt, 64, 64)
+    with pytest.raises(ValueError):
+        ep.epilogue_pack(st, dt, torch.tensor([64, 64], device=cuda), 64)

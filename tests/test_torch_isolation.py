@@ -28,7 +28,7 @@ def test_import_leaves_no_jax_or_psa_tpu():
             "psa_torch.utils.server, psa_torch.utils.io, psa_torch.parallel.mesh, "
             "psa_torch.parallel.multihost, psa_torch.utils.launcher, "
             "psa_torch.ops.engine_xla, psa_torch.ops.engine_conv, "
-            "psa_torch.utils.profiling; "
+            "psa_torch.utils.profiling, psa_torch.ops.epilogue; "
             "assert psa_torch.native.available(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'psa_tpu')); print(bad)")
@@ -47,7 +47,8 @@ def test_static_scan_finds_no_jax_or_psa_tpu_import():
               "utils/kernel_lab.py", "utils/lab_ab.py", "native/__init__.py",
               "utils/server.py", "utils/io.py", "utils/cli.py",
               "parallel/mesh.py", "parallel/multihost.py", "utils/launcher.py",
-              "ops/engine_xla.py", "ops/engine_conv.py", "utils/profiling.py"):
+              "ops/engine_xla.py", "ops/engine_conv.py", "utils/profiling.py",
+              "ops/epilogue.py"):
         assert ROOT / "psa_torch" / f in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
@@ -104,9 +105,21 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
 
 
 def test_library_build_is_deferred():
-    """Importing the sweep module builds nothing: the library is compiled at
-    the first CUDA launch."""
-    out = subprocess.run([sys.executable, "-c", "import psa_torch.ops.sweep as s; "
-                          "print(s._lib is None, s.launches)"], cwd=ROOT,
+    """Importing the sweep and epilogue modules builds nothing: the library
+    is compiled at the first CUDA launch."""
+    out = subprocess.run([sys.executable, "-c", "import psa_torch.ops.sweep as s, "
+                          "psa_torch.ops.epilogue as e; "
+                          "print(s._lib is None, s.launches, e.launches)"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
-    assert out.stdout.split() == ["True", "0"], out.stderr
+    assert out.stdout.split() == ["True", "0", "0"], out.stderr
+
+
+def test_epilogue_source_is_the_ports_own():
+    """csrc/epilogue.cu is built with the sweeps (one nvcc per csrc/*.cu,
+    hashed into the library's name) and names nothing of the JAX package
+    but the function it replaces."""
+    src = ROOT / "psa_torch" / "csrc" / "epilogue.cu"
+    assert src in set(sw._CSRC.glob("*.cu"))
+    text = src.read_text()
+    assert "#include" in text and not re.search(r"#include\s+[<\"](jax|psa_tpu)", text)
+    assert "psa_tpu/models/batch.py:643" in text

@@ -132,7 +132,7 @@ def test_sweep_rows_match_pallas_interpret(variant):
         want = jv3._sweep_pallas_v3(a, b, noff_pad, l2p // 256, True, JAX_TILE)
         plan, fn = v3.plan_shapes_v3, v3.sweep_v3
     noff, _, l2p, l1k = plan(n1, n2)
-    got = fn(sw.upload_codes(c1, l1k, "cpu"), sw.upload_codes(c2, l2p, "cpu"),
+    got = fn(*sw.upload_codes("cpu", (c1, l1k), (c2, l2p)),
              torch.from_numpy(tables.code)).numpy()
     np.testing.assert_array_equal(got[:, :noff], np.asarray(want)[:, :noff])
     assert not got[5:].any()
@@ -143,8 +143,8 @@ def test_sweep_rows_match_pallas_interpret(variant):
 def test_sweep_v3_plain_is_sweep_plain_without_row_3():
     rng = np.random.default_rng(3)
     noff, noff_pad, l2p, l1k = v2.plan_shapes_v2(900, 200)
-    d1 = sw.upload_codes(codes(rng, 900, "lenient"), l1k, "cpu")
-    d2 = sw.upload_codes(codes(rng, 200, "lenient"), l2p, "cpu")
+    d1, d2 = sw.upload_codes("cpu", (codes(rng, 900, "lenient"), l1k),
+                             (codes(rng, 200, "lenient"), l2p))
     code = torch.from_numpy(build_tables(np.array(WEIGHTS[2]), True).code)
     want = sw.sweep_rows_plain(d1, d2, code, tile=v2.TILE, align=v2.CHUNK)
     assert torch.equal(v2.sweep_v2_plain(d1, d2, code), want)

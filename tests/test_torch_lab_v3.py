@@ -146,8 +146,7 @@ def test_segments_added_and_maxed_give_the_whole_sweep(variant, slots):
         c1, c2 = lenient_codes(rng, n1), lenient_codes(rng, n2)
     else:
         c1, c2 = rng.integers(0, 26, n1), rng.integers(0, 26, n2)
-    d1 = sw.upload_codes(c1, l1k, "cpu")
-    d2 = sw.upload_codes(c2, l2p, "cpu")
+    d1, d2 = sw.upload_codes("cpu", (c1, l1k), (c2, l2p))
     code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False).code)
     whole = plain(d1, d2, code)
     if variant == "v2":

@@ -25,8 +25,7 @@ from conftest import random_codes
 def port_rows(c1, c2, tables, plain=False):
     """The port's (5, noff_pad) stats5 for codes c1, c2 on the CPU."""
     noff, noff_pad, l2p, l1k = sw.plan_shapes(c1.shape[0], c2.shape[0])
-    d1 = sw.upload_codes(c1, l1k, "cpu")
-    d2 = sw.upload_codes(c2, l2p, "cpu")
+    d1, d2 = sw.upload_codes("cpu", (c1, l1k), (c2, l2p))
     code = torch.from_numpy(tables.code)
     fn = sw.sweep_plain if plain else sw.sweep
     got = fn(d1, d2, code).numpy()
@@ -144,8 +143,7 @@ def test_plain_blocking_does_not_change_rows():
     c1 = random_codes(rng, 1500)
     c2 = random_codes(rng, 200)
     noff, noff_pad, l2p, l1k = sw.plan_shapes(1500, 200)
-    d1 = sw.upload_codes(c1, l1k, "cpu")
-    d2 = sw.upload_codes(c2, l2p, "cpu")
+    d1, d2 = sw.upload_codes("cpu", (c1, l1k), (c2, l2p))
     code = torch.from_numpy(tables.code)
     np.testing.assert_array_equal(sw.sweep_plain(d1, d2, code).numpy(),
                                   sw.sweep_plain(d1, d2, code, 7 * l2p).numpy())

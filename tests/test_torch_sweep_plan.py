@@ -152,8 +152,7 @@ def test_plan_writes_give_sweep_plain(n1, n2, workers):
     codes1[::31] = HYPHEN_CODE
     codes2[::37] = OTHER_CODE
     _, _, l2p, l1k = sw.plan_shapes(n1, n2)
-    c1 = sw.upload_codes(codes1, l1k, "cpu")
-    c2 = sw.upload_codes(codes2, l2p, "cpu")
+    c1, c2 = sw.upload_codes("cpu", (codes1, l1k), (codes2, l2p))
     code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]),
                                          workers % 2 == 1).code)
     np.testing.assert_array_equal(run_plan(c1, c2, code, workers),

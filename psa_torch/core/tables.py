@@ -358,14 +358,22 @@ class DeviceTables:
     code: "torch.Tensor"     # (32, 32) int8 fused code table, [c1][c2]
     w32: "torch.Tensor"      # (4,) f32 signed class weights
     diff32: "torch.Tensor"   # (num_ranks + 1,) f32 rank -> diff, 0 appended
+    # values derived once and kept: ("eps", l2p) -> eps; what a kernel
+    # wrapper reads on every call (ops/epilogue.py)
+    _memo: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     @property
     def is_max(self) -> bool:
         return self.tables.is_max
 
     def eps(self, l2p: int) -> float:
-        """The f32 near-tie band half-width for padded Seq2 length l2p."""
-        return float(np.float32(f32_band_epsilon(self.tables, l2p)))
+        """The f32 near-tie band half-width for padded Seq2 length l2p,
+        computed once per l2p (every device call reads it)."""
+        e = self._memo.get(("eps", l2p))
+        if e is None:
+            e = self._memo["eps", l2p] = float(np.float32(f32_band_epsilon(self.tables, l2p)))
+        return e
 
 
 def device_tables(tables: ScoringTables, device) -> DeviceTables:

@@ -192,17 +192,12 @@ def build_library() -> ctypes.CDLL:
                lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk,
                lib.psa_sweep_batched_plan, lib.psa_sweep_plan,
                lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan,
-               lib.psa_epilogue_cols):
+               lib.psa_epilogue_cols, lib.psa_epilogue_narrow_cols,
+               lib.psa_epilogue_params):
         fn.restype = ctypes.c_int
-    lib.psa_epilogue_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p]
+    lib.psa_epilogue_launch.argtypes = [ctypes.c_void_p]   # one int64 block
     lib.psa_epilogue_launch.restype = ctypes.c_int
-    lib.psa_epilogue_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_int]
+    lib.psa_epilogue_scratch_words.argtypes = [ctypes.c_int] * 4
     lib.psa_epilogue_scratch_words.restype = ctypes.c_longlong
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p

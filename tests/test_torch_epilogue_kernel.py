@@ -1,14 +1,16 @@
 """The port's top-k epilogue and pack (psa_torch.ops.epilogue) on the CPU,
 where `epilogue_pack` runs its plain version: against the JAX package's
 `exact_topk_epilogue_rows` + `pack_epilogue_outputs(compact=False)` on the
-same stats5, compared by `same_pack` (best's bits, near and every index and
-stats column exact: tolerance 0), the comparator itself, the paths that
-route through `epilogue_pack`, the one-buffer upload and the dispatch.
-The CUDA kernel itself runs only on the card (tests/test_torch_gpu.py)."""
+same stats5, word for word (tolerance 0, ties at the k-th key included),
+the ranking against `jax.lax.top_k` index for index, the cached band eps,
+the comparator itself, the paths that route through `epilogue_pack`, the
+kernel's scratch cache, the one-buffer upload and the dispatch.  The CUDA
+kernel itself runs only on the card (tests/test_torch_gpu.py)."""
 
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,6 +105,7 @@ def test_epilogue_pack_matches_jax(case, is_max):
     want = jax_pack(w, is_max, st, noff, l2p, g0)
     assert got.shape == (st.shape[0], 6 * K + 2) and got.dtype == torch.int32
     assert ep.pack_mismatch(want, got, st, noff, dtabs, g0) is None
+    assert np.array_equal(got.numpy(), want)
     near = got[:, 6 * K].numpy()
     best = got[:, 6 * K + 1].numpy().view(np.float32)
     if case == "near_gt_k":
@@ -121,6 +124,94 @@ def test_ties_at_kth_really_tie():
     _, tables, st, noff, _, _ = case_inputs("ties_at_kth", False)
     srt = -np.sort(-keys_of(tables, st, noff), axis=1)
     assert (srt[:, K - 1] == srt[:, K]).all()
+
+
+def tie_heavy_keys(rng, rows, n):
+    """(rows, n) f32 keys drawn from a few values, -inf, +0.0 and -0.0."""
+    pool = np.array([-np.inf, 0.0, -0.0, 1.5, -1.5, 2.0, 7.25, -3.0],
+                    np.float32)
+    return pool[rng.integers(0, pool.size, (rows, n))]
+
+
+RANK_CASES = [(1, 40, 1), (3, 100, 7), (2, 257, 32), (4, 300, 33), (2, 1000, 64),
+              (5, 64, 64)]
+
+
+@pytest.mark.parametrize("rows,n,k", RANK_CASES)
+def test_ranking_matches_lax_top_k(rows, n, k):
+    """The port's ranking (`rank_keys`, the kernel's order) holds random
+    f32 keys with ties, -inf and both zeros in lax.top_k's order, index for
+    index, and best equals jnp.max bit for bit."""
+    rng = np.random.default_rng(rows * 1000 + n + k)
+    keys = tie_heavy_keys(rng, rows, n)
+    if rows > 1:
+        keys[1, ::3] = rng.standard_normal(keys[1, ::3].shape).astype(np.float32)
+    topi, best = ep.rank_keys(torch.from_numpy(keys), k)
+    _, want = jax.lax.top_k(jnp.asarray(keys), k)
+    assert np.array_equal(topi.numpy(), np.asarray(want))
+    jbest = np.asarray(jnp.max(jnp.asarray(keys), axis=-1))
+    assert np.array_equal(best.numpy().view(np.uint32), jbest.view(np.uint32))
+
+
+def test_ranking_puts_positive_zero_first():
+    keys = torch.tensor([[-0.0, 0.0, -0.0, 0.0, float("-inf")]])
+    topi, best = ep.rank_keys(keys, 5)
+    assert topi.tolist() == [[1, 3, 0, 2, 4]]
+    assert best.numpy().view(np.uint32)[0] == 0
+
+
+@pytest.mark.parametrize("is_max", [False, True])
+@pytest.mark.parametrize("w", [W_INT, W_IRR, (0.5, 0.0, 2.5, 100.0)])
+def test_cached_eps_is_the_band_epsilon(w, is_max):
+    """`DeviceTables.eps` computes once per l2p and gives the f32 bits of
+    the JAX package's `f32_band_epsilon`, on the first call and after."""
+    dtabs = device_tables(build_tables(np.array(w), is_max), "cpu")
+    jt = jax_build_tables(np.array(w), is_max)
+    for l2p in (1, 64, 512, 10_016, 250_016):
+        want = np.float32(jbatch.f32_band_epsilon(jt, l2p)).view(np.uint32)
+        for _ in range(2):
+            assert np.float32(dtabs.eps(l2p)).view(np.uint32) == want
+    assert sorted(l2p for key, l2p in dtabs._memo if key == "eps") == [1, 64, 512, 10_016,
+                                                                      250_016]
+
+
+def test_scratch_is_cached_and_grows():
+    """The kernel's scratch: one zeroed ticket buffer per (device, stream),
+    kept across calls, and a data buffer that grows to the largest need and
+    is never cut back."""
+    dev = torch.device("cpu")
+    ep._scratch.pop((dev.index, 7), None)
+    tickets, data = ep._scratch_for(dev, 7, 0)
+    assert data is None and tickets.numel() == ep.MAX_ROWS and not tickets.any()
+    big = ep.scratch_words(3, 5 * ep.EPILOGUE_COLS + 1, K, ep.EPILOGUE_COLS)
+    t2, d2 = ep._scratch_for(dev, 7, big)
+    assert t2 is tickets and d2.numel() == big
+    t3, d3 = ep._scratch_for(dev, 7, ep.scratch_words(1, ep.EPILOGUE_COLS + 1, K,
+                                                       ep.NARROW_COLS))
+    assert t3 is tickets and d3 is d2
+    assert ep._scratch_for(dev, 8, 0)[0] is not tickets
+    ep._scratch.pop((dev.index, 7))
+    ep._scratch.pop((dev.index, 8))
+
+
+@pytest.mark.parametrize("cols", [1024, 2048])
+def test_scratch_words(cols):
+    """No scratch for rows of one block; per block of a wider row its top
+    32 (k <= 32) or 64 candidates of two words and its band count."""
+    assert ep.scratch_words(1024, ep.EPILOGUE_COLS, K, cols) == 0
+    nblk = -(-90_112 // cols)
+    assert ep.scratch_words(1, 90_112, 32, cols) == nblk * 65
+    assert ep.scratch_words(2, 90_112, 7, cols) == 2 * nblk * 65
+    assert ep.scratch_words(3, 90_112, 33, cols) == 3 * nblk * 129
+
+
+@pytest.mark.parametrize("np_len,sms,want", [
+    (90_112, 132, 1024), (998_144, 132, 2048), (198_144, 132, 1024), (350_208, 132, 2048),
+    (270_336, 132, 1024), (270_337, 132, 2048), (90_112, 40, 2048), (22_528, 1, 2048)])
+def test_block_cols_fit_two_blocks_a_multiprocessor(np_len, sms, want):
+    """A wide row's blocks are 1,024 offsets while they fit two a
+    multiprocessor, else 2,048: the north star's 88 on an H100's 132."""
+    assert ep.block_cols(np_len, sms) == want
 
 
 @pytest.mark.parametrize("is_max", [False, True])
@@ -263,10 +354,13 @@ def test_dispatch_raises_off_cpu_and_cuda():
 
 
 def test_source_constants_match_the_wrapper():
-    """csrc/epilogue.cu's block width and k limit are the wrapper's, and the
+    """csrc/epilogue.cu's block widths and k limit are the wrapper's, and the
     library build compiles it with the sweeps."""
     src = (ROOT / "psa_torch" / "csrc" / "epilogue.cu").read_text()
-    assert int(re.search(r"kCols = (\d+);", src).group(1)) == ep.EPILOGUE_COLS
-    assert int(re.search(r"kMaxK = (\d+);", src).group(1)) >= ep.TOPK
+    assert int(re.search(r"kRowCols = (\d+);", src).group(1)) == ep.EPILOGUE_COLS
+    assert int(re.search(r"kNarrowCols = (\d+);", src).group(1)) == ep.NARROW_COLS
+    assert int(re.search(r"kMaxK = (\d+);", src).group(1)) == ep.MAX_K >= ep.TOPK
+    params = [p.strip() for p in re.search(r"enum Param \{([^}]*)\}", src).group(1).split(",")]
+    assert params.index("kParams") == ep.PARAMS
     assert "epilogue.cu" in {f.name for f in sw._CSRC.glob("*.cu")}
     assert "__fmul_rn" in src and "__fadd_rn" in src and "__fsub_rn" in src

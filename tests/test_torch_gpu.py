@@ -542,9 +542,10 @@ def test_conv_integer_check_raises_on_the_card(cuda):
 
 
 # (rows, NP, noff, count range, weights, is_max, g0): one block per row
-# (the batch path's one launch), several blocks (two launches), exact key
+# (no scratch), several blocks (the last block of a row merges), exact key
 # ties at 1 3 4 2, all keys equal (every block's candidates tie at the
-# row's k-th key), noff < k, a row with no valid offset, a shard's g0
+# row's k-th key), noff < k, a row with no valid offset, a shard's g0, and
+# three wide rows of their own noff (a ticket each)
 EPILOGUE_CASES = {
     "batch_rows_per_row_noff": (1024, 1792, "per_row", 128, (1.0, 3.0, 4.0, 2.0), False, 0),
     "north_star_width": (1, 90_112, 90_001, 2500, (2.0, 1.0, 5.0, 0.5), True, 0),
@@ -553,14 +554,14 @@ EPILOGUE_CASES = {
     "noff_lt_k": (3, 256, 7, 100, (1.0, 3.0, 4.0, 2.0), True, 0),
     "no_valid_offset": (2, 6000, 0, 100, (1.0, 3.0, 4.0, 2.0), False, 0),
     "shard_g0": (1, 22_528, 20_000, 500, (1.0, 3.0, 4.0, 2.0), False, 67_584),
+    "wide_rows_per_row_noff": (3, 5 * 2048 + 1, "per_row", 300,
+                               (np.pi / 4, np.e / 7, np.sqrt(2) / 3, 1 / 3), False, 0),
 }
 
 
-@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
-def test_epilogue_kernel_matches_plain(cuda, case):
-    """csrc/epilogue.cu against its plain version on the same card
-    tensors, under `same_pack`: best's bits, near, the keys at topi, the
-    stats5 columns and distinct in-range indices."""
+def epilogue_case(cuda, case):
+    """(stats5 on the card, its host copy, noff, device tables, g0) of one
+    of EPILOGUE_CASES."""
     b, np_len, noff, hi, w, is_max, g0 = EPILOGUE_CASES[case]
     rng = np.random.default_rng(np_len + b)
     t = build_tables(np.array(w), is_max)
@@ -572,17 +573,60 @@ def test_epilogue_kernel_matches_plain(cuda, case):
         st[:, 4] = 0
     if noff == "per_row":
         noff = torch.from_numpy(rng.integers(1, np_len + 1, b).astype(np.int32)).to(cuda)
-    dt = device_tables(t, cuda)
-    d = torch.from_numpy(st).to(cuda)
+    return torch.from_numpy(st).to(cuda), st, noff, device_tables(t, cuda), g0
+
+
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
+def test_epilogue_kernel_matches_plain(cuda, case):
+    """csrc/epilogue.cu against its plain version on the same card
+    tensors, word for word (`pack_mismatch` names the first difference),
+    in exactly one CUDA launch."""
+    d, st, noff, dt, g0 = epilogue_case(cuda, case)
     before = ep.launches, ep.cuda_launches
     got = ep.epilogue_pack(d, dt, noff, 512, g0=g0)
     torch.cuda.synchronize()
-    assert (ep.launches, ep.cuda_launches) == (
-        before[0] + 1, before[1] + (1 if np_len <= ep.EPILOGUE_COLS else 2))
+    assert (ep.launches, ep.cuda_launches) == (before[0] + 1, before[1] + 1)
     want = ep.epilogue_pack_plain(d, dt, noff, 512, g0=g0)
     assert ep.pack_mismatch(want, got, st, noff, dt, g0) is None
+    assert torch.equal(got, want)
     if case == "all_equal":
-        assert (got[:, 6 * ep.TOPK].cpu() == np_len - 1000).all()
+        assert (got[:, 6 * ep.TOPK].cpu() == d.shape[2] - 1000).all()
+
+
+def test_epilogue_kernel_repeats_and_resets_its_tickets(cuda):
+    """The same wide call three times gives the same pack (equal keys fall
+    to the lowest offset, and each row's last block resets its ticket), and
+    every ticket of the stream's scratch is 0 after."""
+    for case in ("ties_1M", "wide_rows_per_row_noff", "all_equal"):
+        d, _, noff, dt, g0 = epilogue_case(cuda, case)
+        packs = [ep.epilogue_pack(d, dt, noff, 512, g0=g0) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, packs[0]) for p in packs[1:]), case
+        stream = torch.cuda.current_stream().cuda_stream
+        tickets, _ = ep._scratch[(d.device.index, stream)]
+        assert not tickets.any().item(), case
+
+
+def test_epilogue_kernel_smaller_call_after_larger(cuda):
+    """The cached scratch serves a smaller call after a larger one without
+    shrinking, and the wrapper's scratch words are the kernel's own."""
+    lib = sw.build_library()
+    assert lib.psa_epilogue_params() == ep.PARAMS
+    for b, np_len, k in ((1, 2048, 32), (1, 2049, 32), (3, 10_241, 32), (2, 90_112, 64),
+                         (1024, 1792, 32), (1, 998_400, 7)):
+        for cols in (ep.NARROW_COLS, ep.EPILOGUE_COLS):
+            assert (lib.psa_epilogue_scratch_words(b, np_len, k, cols)
+                    == ep.scratch_words(b, np_len, k, cols))
+    big, _, noff_big, dt, _ = epilogue_case(cuda, "wide_rows_per_row_noff")
+    ep.epilogue_pack(big, dt, noff_big, 512)
+    stream = torch.cuda.current_stream().cuda_stream
+    data = ep._scratch[(big.device.index, stream)][1]
+    small = big[:1, :, :4100].contiguous()
+    got = ep.epilogue_pack(small, dt, 4000, 512)
+    assert ep._scratch[(big.device.index, stream)][1] is data
+    assert torch.equal(got, ep.epilogue_pack_plain(small, dt, 4000, 512))
+    assert torch.equal(ep.epilogue_pack(big, dt, noff_big, 512),
+                       ep.epilogue_pack_plain(big, dt, noff_big, 512))
 
 
 def test_epilogue_kernel_on_the_device_paths(cuda):

@@ -31,6 +31,14 @@ just after:
   with the launches counted per wave, `--backend auto` in a closed loop,
   one traced 256-line chunk and a chunk's parse/dispatch/finish/format
   split;
+- the serve warm start (`--serve --listen --warmup FILE`, a file of the
+  batch workload's lines on one shared Seq1): new servers with and without
+  the warmup, each timed from its spawn to its listening line and through
+  its first request (1 line or 256), a first 256 on one Seq1 and steady
+  256-line requests, every reply held against the native engine's and
+  every `[warmup]` line before the listening line; then the warmup in this
+  process with its launches counted, and a first chunk of each kind that
+  must allocate no device segment;
 - the sharded and multi-process paths (psa_torch/parallel): the north star
   through `search_sharded` on meshes of 1, 2, 4 and 8 shards of the one
   card, `search_sharded_2d` at (1,2), (2,2), (1,4) and (2,4), and
@@ -1030,17 +1038,26 @@ class ServeProc:
 
     def __init__(self, args, env_extra=None, stdin=None, stdout=None):
         env = dict(os.environ, **(env_extra or {}))
+        t0 = time.perf_counter()
         self.proc = subprocess.Popen([*SERVE_CMD, *args], cwd=ROOT, env=env,
                                      stdin=stdin, stdout=stdout,
                                      stderr=subprocess.PIPE, text=True)
         self.err: list = []
         self.port = None
-        first = self.proc.stderr.readline() if "--listen" in args else ""
+        # with --listen: the stderr lines before the listening line (the
+        # warmup's), and the seconds from the spawn to that line
+        self.before: list = []
+        self.listen_s = None
         if "--listen" in args:
-            if "listening on" not in first:
+            for line in self.proc.stderr:
+                if "listening on" in line:
+                    self.listen_s = time.perf_counter() - t0
+                    self.port = int(line.rsplit(":", 1)[1])
+                    break
+                self.before.append(line.rstrip("\n"))
+            else:
                 self.proc.kill()
-                raise AssertionError(f"serve --listen did not start: {first!r}")
-            self.port = int(first.rsplit(":", 1)[1])
+                raise AssertionError(f"serve --listen did not start: {self.before[-5:]}")
         self._t = threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
                                    daemon=True)
         self._t.start()
@@ -1488,6 +1505,252 @@ def serve_phases(torch, sw, v2, v3, native, batch, Query, wide, ns_line, ns_repl
               **{k: statistics.median(v) for k, v in ph.items()}})
     emit({"phase": "serve_elapsed", "seconds": time.perf_counter() - t_serve})
     return waves
+
+
+# The serve warm start (`--serve --warmup FILE`): the warmup file holds the
+# batch workload's first lines on one shared Seq1 (one bucket whose lines
+# share Seq1, so both batched kernels warm); the servers run at
+# --serve-batch 256 on the build already cached.
+WARMUP = dict(batch=256, file_lines=8, steady=5)
+
+
+def serve_requests(sp, requests):
+    """Each (name, lines, want) as one TCP connection after the previous one
+    is answered; a one-line request is timed as a closed loop.  Returns
+    {name: (client ms, the chunks (queries, ms) the server logged for it)}
+    and the mismatched replies."""
+    out, n_bad = {}, 0
+    for name, lines, want in requests:
+        n_log = len(sp.chunk_log())
+        replies, lat, secs = tcp_clients(("127.0.0.1", sp.port), [lines], len(lines) == 1)
+        n_bad += mismatches(replies, [want])
+        t_end = time.perf_counter() + 10      # the log line may trail the reply
+        while (sum(n for n, _ in sp.chunk_log()[n_log:]) < len(lines)
+               and time.perf_counter() < t_end):
+            time.sleep(0.01)
+        out[name] = (lat[0] if lat else secs * 1e3, sp.chunk_log()[n_log:])
+    return out, n_bad
+
+
+def serve_warmup_split_child(warm_file: str) -> int:
+    """In a new process: the CLI's warmup of `warm_file` with the serve
+    loop's finishing thread (utils/server.Finisher), then four 256-line
+    chunks of the batch workload (seeds 0..1023), each split into parse,
+    dispatch (buckets, encode, uploads, launches), the hand-off to the
+    finishing thread, the fetch wait, host selection and formatting.  The
+    first two chunks finish on the warmup's finishing thread, as a warmed
+    server's do; the third on a new thread after one tiny native call with
+    an OpenMP parallel region there (`team_ms`); the fourth on another new
+    thread.  Prints one JSON line."""
+    import queue
+
+    import torch
+
+    from psa_torch import native
+    from psa_torch.models import batch
+    from psa_torch.utils import cli as cli_mod
+    from psa_torch.utils.generator import random_sequences
+    from psa_torch.utils.io import Query, parse_query_lines
+    from psa_torch.utils.server import Finisher
+
+    dev = torch.device("cuda")
+    n = WARMUP["batch"]
+    args = cli_mod.build_parser().parse_args(
+        ["--serve", "--quiet", "--serve-batch", str(n), "--warmup", warm_file])
+    cli_mod._fold_device_share(args)
+    fin = Finisher()
+    t0 = time.perf_counter()
+    rc = cli_mod._serve_warmup(args, dev, None, fin)
+    warm_s = time.perf_counter() - t0
+    queries = batch_queries(Query, random_sequences, shared=False, b=4 * n)
+
+    def new_thread():
+        jobs: queue.Queue = queue.Queue()
+        done: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [done.put(fn()) for fn in iter(jobs.get, None)],
+                         daemon=True).start()
+        return lambda fn: (jobs.put(fn), done.get())[1]
+
+    def chunk(qs, run_on):
+        lines = [serve_line(q) for q in qs]
+        t = [time.perf_counter()]
+        ents = parse_query_lines(lines)
+        t.append(time.perf_counter())
+        handles, fin_chunk = batch.search_batch_async(ents, backend="torch",
+                                                      strict_alphabet=False, device=dev)
+        t.append(time.perf_counter())
+
+        def finish():
+            t.append(time.perf_counter())
+            for h in handles:
+                h.wait()
+            t.append(time.perf_counter())
+            res = fin_chunk()
+            t.append(time.perf_counter())
+            return res
+
+        res = run_on(finish)
+        outs = [reply_line(q, r) for q, r in zip(ents, res)]
+        t.append(time.perf_counter())
+        split = {k: (b - a) * 1e3 for k, a, b in zip(
+            ("parse", "dispatch", "handoff", "fetch_wait", "select", "format"), t, t[1:])}
+        return {**split, "total": (t[-1] - t[0]) * 1e3}, outs
+
+    def team():
+        t0 = time.perf_counter()
+        native.offset_stats_native(np.zeros(64, np.int32), np.zeros(8, np.int32),
+                                   batch.build_tables_cached(np.array(BATCH["weights"]),
+                                                             False))
+        return (time.perf_counter() - t0) * 1e3
+
+    third = new_thread()
+    team_ms = third(team)
+    out, got = [], []
+    for c, (run_on, kind) in enumerate(((fin.call, "the warmup's"), (fin.call, "the warmup's"),
+                                        (third, "new, after the tiny native call"),
+                                        (new_thread(), "new"))):
+        split, outs = chunk(queries[c * n:(c + 1) * n], run_on)
+        out.append({"finishing_thread": kind, **split})
+        got += outs
+    fin.close()
+    want = [reply_line(q, r) for q, r in zip(queries, batch.search_batch(queries,
+                                                                          backend="native"))]
+    print(json.dumps({"rc": rc, "warmup_s": warm_s, "team_ms": team_ms, "chunks": out,
+                      "mismatches": mismatches([got], [want])}))
+    return 0
+
+
+def serve_warmup_phase(torch, sw, v2, v3, native, batch, Query, wide, dev, build):
+    """Fresh `--serve --listen 127.0.0.1:0` processes with and without
+    `--warmup`, each timed from its spawn to its listening line, then its
+    first request (1 line or 256 lines), the first 256 lines on one shared
+    Seq1, and WARMUP["steady"] more 256-line requests; every reply against
+    the native engine's, and every `[warmup]` line before the listening
+    line.  Then the warmup and a first chunk of each kind in this process,
+    the launches counted around them and the device segments around the
+    chunks.  A failure raises AssertionError."""
+    from psa_torch.utils import cli as cli_mod
+    from psa_torch.utils import server as server_mod
+
+    t_phase = time.perf_counter()
+    w = WARMUP
+    n_b = w["batch"]
+    rows = wide[: (w["steady"] + 1) * n_b]
+    shared = [Query(q.weights, rows[0].seq1, q.seq2, q.is_max) for q in rows[:n_b]]
+    want_rows = [reply_line(q, r) for q, r in
+                 zip(rows, batch.search_batch(rows, backend="native"))]
+    want_shared = [reply_line(q, r) for q, r in
+                   zip(shared, batch.search_batch(shared, backend="native"))]
+    row_lines = [serve_line(q) for q in rows]
+    shared_lines = [serve_line(q) for q in shared]
+    warm_file = ROOT / "psa_torch" / "_build" / "smoke" / "warmup.txt"
+    warm_file.parent.mkdir(parents=True, exist_ok=True)
+    warm_file.write_text("\n".join(shared_lines[-w["file_lines"]:]) + "\n")
+    steady = [(f"steady_{i}", row_lines[(i + 1) * n_b:(i + 2) * n_b],
+               want_rows[(i + 1) * n_b:(i + 2) * n_b]) for i in range(w["steady"])]
+    runs = {}
+    for warm in (False, True):
+        for first in (1, n_b):
+            sp = ServeProc(["--listen", "127.0.0.1:0", "--serve-batch", str(n_b),
+                            *(["--warmup", str(warm_file)] if warm else [])])
+            try:
+                got, n_bad = serve_requests(sp, [
+                    ("first", row_lines[:first], want_rows[:first]),
+                    ("first_shared_s1", shared_lines, want_shared), *steady])
+            finally:
+                rc = sp.stop()
+            late = [ln for ln in sp.err if ln.startswith("[warmup]")]
+            warm_log = [ln for ln in sp.before if ln.startswith("[warmup]")]
+            steady_chunks = [c for name, (_, log) in got.items()
+                             if name.startswith("steady") for c in log]
+            one = {"warmup": warm, "first_request_lines": first,
+                   "spawn_to_listen_s": sp.listen_s,
+                   "first_reply_ms": got["first"][0], "first_chunks": got["first"][1],
+                   "first_shared_s1_reply_ms": got["first_shared_s1"][0],
+                   "first_shared_s1_chunks": got["first_shared_s1"][1],
+                   "steady_reply_ms": [got[name][0] for name, _, _ in steady],
+                   "steady_chunk_ms_median": statistics.median(
+                       ms for n, ms in steady_chunks if n == n_b) if any(
+                       n == n_b for n, _ in steady_chunks) else None,
+                   "steady_chunks": steady_chunks, "mismatches": n_bad, "rc": rc,
+                   "warmup_log": warm_log, "stderr_before_listen": sp.before[-8:]}
+            emit({"phase": "serve_warmup", **one})
+            runs[warm, first] = one
+            assert rc == 0 and n_bad == 0, \
+                f"serve_warmup (warmup {warm}, first {first}): rc {rc}, {n_bad} mismatched"
+            assert not late, f"[warmup] lines after the listening line: {late}"
+            if warm:
+                assert warm_log and warm_log[0].startswith("[warmup] kernels ") \
+                    and warm_log[-1].startswith("[warmup] 1 bucket(s) warmed"), warm_log
+            else:
+                assert not warm_log, warm_log
+
+    # the same warmup in this process, then a 256-line chunk per-row and on
+    # one Seq1: launch counts zeroed just before the warmup and read after
+    # the chunks; device segments read around the chunks
+    args = cli_mod.build_parser().parse_args(
+        ["--serve", "--quiet", "--listen", "127.0.0.1:0", "--serve-batch", str(n_b),
+         "--warmup", str(warm_file)])
+    cli_mod._fold_device_share(args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_launches(sw, v2, v3)
+    native.calls.clear()
+    t0 = time.perf_counter()
+    rc = cli_mod._serve_warmup(args, dev, None)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    segments = [torch.cuda.memory_stats()["segment.all.allocated"]]
+    chunk_ms, n_bad = [], 0
+    for lines, want in ((row_lines[:n_b], want_rows[:n_b]), (shared_lines, want_shared)):
+        t0 = time.perf_counter()
+        outs = server_mod.dispatch_query_lines(lines, backend="torch", lenient=False,
+                                               json_out=False, device=dev).finish()[0]
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        n_bad += mismatches([outs], [want])
+    torch.cuda.synchronize()
+    segments.append(torch.cuda.memory_stats()["segment.all.allocated"])
+    launches = read_launches(sw, v2, v3)
+    emit({"phase": "main_path_launches", "path": "serve_warmup", "rc": rc,
+          "warmup_s": warm_s, "chunk_ms": chunk_ms, "mismatches": n_bad,
+          "device_segments_before_after_chunks": segments, **launches,
+          "native_calls": dict(native.calls)})
+    assert rc == 0 and n_bad == 0, f"in-process warmup: rc {rc}, {n_bad} mismatched"
+    # warm_kernels' two launches, the bucket's plain and shared ones, a chunk each
+    assert launches["sweep_batched"] >= 3 and launches["sweep_batched_shared"] >= 3, launches
+    assert launches["epilogue"] == launches["sweep_batched"] + launches["sweep_batched_shared"]
+    assert segments[1] == segments[0], f"the warmed chunks allocated segments: {segments}"
+    assert native.calls.get("search", 0) == 0, "a host engine answered"
+
+    # what a warmed process's first chunks still pay, phase by phase, in a
+    # new process (this one has run everything before)
+    p = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.serve_warmup_split_child(sys.argv[1]))", str(warm_file)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, f"serve_warmup_split_child: rc {p.returncode}: {p.stderr[-2000:]}"
+    child = json.loads(p.stdout.strip().splitlines()[-1])
+    emit({"phase": "serve_warmup_first_chunks_ms", **child})
+    assert child["rc"] == 0 and child["mismatches"] == 0, \
+        f"serve_warmup_split_child: rc {child['rc']}, {child['mismatches']} mismatched"
+
+    def pick(warm, first, key):
+        return runs[warm, first][key]
+
+    emit({"phase": "serve_warmup_summary",
+          "nvcc_build_s": "cached" if build["cached"] else build["seconds"],
+          "spawn_to_listen_s": {f"warmup_{w_}": [pick(w_, f, "spawn_to_listen_s")
+                                                 for f in (1, n_b)]
+                                for w_ in (False, True)},
+          **{f"first_{f}_line_reply_ms": {f"warmup_{w_}": pick(w_, f, "first_reply_ms")
+                                          for w_ in (False, True)} for f in (1, n_b)},
+          **{f"first_{f}_line_chunk_ms": {f"warmup_{w_}": [ms for _, ms in
+                                                         pick(w_, f, "first_chunks")]
+                                          for w_ in (False, True)} for f in (1, n_b)},
+          "steady_chunk_ms_median": {f"warmup_{w_}": [pick(w_, f, "steady_chunk_ms_median")
+                                                      for f in (1, n_b)]
+                                     for w_ in (False, True)},
+          "seconds": time.perf_counter() - t_phase})
 
 
 # Long Seq2 end to end (the JAX package's long-Seq2 check, README.md's
@@ -2248,14 +2511,15 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # 2. build
+    build_cached = (sw._BUILD_DIR / f"libpsa_sweep_{sw._build_tag()}.so").exists()
     t0 = time.perf_counter()
     lib = sw.build_library()
     build_s = time.perf_counter() - t0
     logs = sorted((sw._BUILD_DIR).glob("*.log"))
     ptxas = [ln.strip() for ln in (logs[-1].read_text().splitlines() if logs else [])
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    emit({"phase": "build", "seconds": build_s, "library": Path(lib._name).name,
-          "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s, "cached": build_cached,
+          "library": Path(lib._name).name, "ptxas": ptxas})
     sass = kernel_lab.sass_loop_mix(kernel_lab.sass_of(lib._name))
     emit({"phase": "sass_loop_mix", "kernels": sass})
     host = host_engine_phase(torch, native)
@@ -2530,6 +2794,9 @@ def main() -> int:
     try:
         serve_phases(torch, sw, v2, v3, native, batch, Query, wide,
                      serve_line(ns_query), reply_line(ns_query, ns_result), dev)
+        # 4d'. the serve warm start: new servers with and without --warmup
+        serve_warmup_phase(torch, sw, v2, v3, native, batch, Query, wide, dev,
+                           {"seconds": build_s, "cached": build_cached})
     except AssertionError as e:
         return fail(str(e))
 

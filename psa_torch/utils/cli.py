@@ -104,6 +104,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-batch", type=int, default=256, metavar="N",
                    help="max queries coalesced into one dispatch in --serve "
                         "mode (default 256)")
+    p.add_argument("--warmup", metavar="FILE", default=None,
+                   help="with --serve: before serving starts, run one chunk "
+                        "of dummy queries through the serve path for each "
+                        "(weights, mode, shape bucket) of the query lines in "
+                        "FILE, so the first replies do not pay the kernel "
+                        "library's build or load, the CUDA context, each "
+                        "kernel's first launch, the device tables or the "
+                        "first device and pinned blocks. Every weight "
+                        "vector is warmed (the device tables are per "
+                        "weights). A failed warmup exits 1 before any "
+                        "reply. By default only the FULL-chunk batch size "
+                        "is warmed (see --warmup-sizes)")
+    p.add_argument("--warmup-sizes", default="chunk", metavar="SPEC",
+                   help="batch sizes to warm per --warmup bucket: `chunk` "
+                        "(default: one full --serve-batch chunk), `ladder` "
+                        "(every power of two 1..chunk), or a comma list of "
+                        "sizes (e.g. `64,256`), each clamped to "
+                        "[1, --serve-batch]")
     p.add_argument("--listen", default=None, metavar="HOST:PORT",
                    help="with --serve: answer TCP connections instead of "
                         "stdin; one event loop serves every client, and "
@@ -630,6 +648,17 @@ def _main_serve(args) -> int:
     except (RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    fin = None
+    if args.warmup:
+        from psa_torch.utils.server import Finisher
+
+        # the serve loop's finishing thread, made first: the warmup's chunks
+        # finish on it, as the clients' chunks will
+        fin = Finisher()
+        rc = _serve_warmup(args, device, mesh, fin)
+        if rc:
+            fin.close()
+            return rc
     t_start = time.perf_counter()
     try:
         with _tracer(args):
@@ -639,10 +668,10 @@ def _main_serve(args) -> int:
                 rc = serve_tcp(args.listen, backend=args.backend,
                                lenient=args.lenient, json_out=args.json,
                                device=device, max_batch=args.serve_batch,
-                               quiet=args.quiet, mesh=mesh)
+                               quiet=args.quiet, mesh=mesh, finisher=fin)
             else:
                 rc = _serve_loop(args, _ServeLineReader(sys.stdin), device,
-                                 mesh)
+                                 mesh, fin)
     except (RuntimeError, OSError, ValueError) as e:
         # a failed build, launch or fetch on the device: the server stops
         # rather than answer from another engine
@@ -655,7 +684,135 @@ def _main_serve(args) -> int:
     return rc
 
 
-def _serve_loop(args, reader, device, mesh=None) -> int:
+def _warmup_sizes(spec: str, chunk: int) -> list | None:
+    """--warmup-sizes SPEC -> the batch sizes to warm per bucket: `chunk`,
+    `ladder` (the powers of two below chunk, then chunk) or a comma list,
+    each clamped to [1, chunk]; None for a bad spec."""
+    if spec == "chunk":
+        return [chunk]
+    if spec == "ladder":
+        sizes, s = [], 1
+        while s < chunk:
+            sizes.append(s)
+            s *= 2
+        return sizes + [chunk]
+    try:
+        return sorted({max(1, min(int(x), chunk))
+                       for x in spec.split(",") if x.strip()})
+    except ValueError:
+        return None
+
+
+def _serve_warmup(args, device, mesh, fin=None) -> int:
+    """--warmup FILE: before the first reply (and the listening line), run
+    a chunk of dummy queries through the serve path for each (weights,
+    mode, `bucket_shape`) of FILE's query lines and each --warmup-sizes
+    batch size: on `torch` and `auto` through models/batch.warm_fused_runner
+    (after warm_kernels has launched each of the path's kernels once), on
+    the shared-Seq1 kernel as well when all of a bucket's lines share Seq1;
+    on the other backends through search_batch_async on that backend, as
+    their chunks run (`numpy` and `native` touch no card).  Each chunk is
+    dispatched here and finished on `fin` (utils/server.Finisher), the
+    serve loop's finishing thread, when one is given.  The JAX package's
+    `_serve_warmup` with two differences: every weight vector is warmed,
+    where the JAX package skips a second one on a (mode, shape) it has
+    compiled (its runners are weights-generic; the port's device tables
+    are per weights), and a failure exits 1 with an `error:` line instead
+    of leaving the bucket to a host engine.  Returns the exit code: 0, 2
+    for an unreadable file or a bad --warmup-sizes, 1 for a failed
+    warmup."""
+    from psa_torch.core.tables import build_tables_cached
+    from psa_torch.models import batch
+    from psa_torch.ops.sweep import bucket_shape
+    from psa_torch.utils.io import parse_query_lines
+
+    try:
+        with open(args.warmup) as f:
+            lines = f.read().splitlines()
+    except OSError as e:
+        print(f"error: cannot read --warmup file `{args.warmup}`: {e}",
+              file=sys.stderr)
+        return 2
+    buckets: dict = {}
+    for j, ent in enumerate(parse_query_lines(lines,
+                                              check_alphabet=not args.lenient)):
+        if ent is None:
+            continue
+        if isinstance(ent, str):
+            print(f"warning: --warmup line {j + 1} skipped: {ent}",
+                  file=sys.stderr)
+            continue
+        l1k, l2p = bucket_shape(len(ent.seq1), len(ent.seq2))
+        buckets.setdefault(
+            (tuple(float(x) for x in ent.weights), ent.is_max, l1k, l2p),
+            []).append(ent.seq1)
+    spec = args.warmup_sizes or "chunk"
+    sizes = _warmup_sizes(spec, max(1, args.serve_batch))
+    if sizes is None:
+        print(f"error: bad --warmup-sizes `{spec}` (use `chunk`, `ladder`, "
+              "or a comma list of ints)", file=sys.stderr)
+        return 2
+    on_device = args.backend in ("torch", "auto")
+    finish = fin.call if fin is not None else (lambda f: f())
+    t_all = time.perf_counter()
+    try:
+        for n, ((w, is_max, l1k, l2p), s1s) in enumerate(buckets.items()):
+            tables = build_tables_cached(np.asarray(w), is_max)
+            if on_device and n == 0:
+                t0 = time.perf_counter()
+                batch.warm_kernels(tables, device, mesh, finish)
+                _warmup_log(args, "kernels built or loaded and launched", t0)
+            # a bucket whose lines all share Seq1 dispatches through the
+            # shared-Seq1 kernel: warm it AND the plain one (mixed chunks)
+            shared = len(s1s) > 1 and all(s == s1s[0] for s in s1s[1:])
+            for b in sizes:
+                for shared_s1 in ((False, True) if shared and b > 1
+                                  else (False,)):
+                    t0 = time.perf_counter()
+                    if on_device:
+                        batch.warm_fused_runner(tables, b, l1k, l2p, device,
+                                                mesh=mesh, shared_s1=shared_s1,
+                                                finish=finish)
+                    else:
+                        finish(batch.search_batch_async(
+                            _warm_queries(tables, b, l1k, l2p, shared_s1),
+                            backend=args.backend, device=device)[1])
+                    _warmup_log(args, f"bucket B={b} l1k={l1k} l2p={l2p} "
+                                f"{'max' if is_max else 'min'}"
+                                f"{' shared Seq1' if shared_s1 else ''} "
+                                "warmed", t0)
+    except (RuntimeError, OSError, ValueError) as e:
+        # no host engine answers in the device's place, so a path that
+        # cannot be warmed cannot serve either
+        print(f"error: warmup failed: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return 1
+    if buckets:
+        _warmup_log(args, f"{len(buckets)} bucket(s) warmed", t_all)
+    return 0
+
+
+def _warmup_log(args, what: str, t0: float) -> None:
+    if not args.quiet:
+        print(f"[warmup] {what} in {time.perf_counter() - t0:.3f}s",
+              file=sys.stderr, flush=True)
+
+
+def _warm_queries(tables, b: int, l1k: int, l2p: int,
+                  shared_s1: bool) -> list:
+    """models/batch.warm_rows' dummy queries as Query objects, for a chunk
+    on a host or per-query backend."""
+    from psa_torch.core.alphabet import decode
+    from psa_torch.models.batch import warm_rows
+    from psa_torch.utils.io import Query
+
+    c1b, c2b, noffs, n2s = warm_rows(b, l1k, l2p, shared_s1)
+    return [Query(tables.weights, decode(c1[: noff + n2 - 1]),
+                  decode(c2[:n2]), tables.is_max)
+            for c1, c2, noff, n2 in zip(c1b, c2b, noffs, n2s)]
+
+
+def _serve_loop(args, reader, device, mesh=None, fin=None) -> int:
     """The chunk loop of `_main_serve`; returns the process exit code.
 
     Pipelined: up to `CONFIG.serve_inflight` chunks may be dispatched but
@@ -664,7 +821,8 @@ def _serve_loop(args, reader, device, mesh=None) -> int:
     chunk instead of waiting out a device round trip.  Replies print
     strictly in input order (chunks finish FIFO).  A partial chunk
     dispatches only once the pipeline is empty: while the device is busy, a
-    trickle accumulates into a fuller chunk."""
+    trickle accumulates into a fuller chunk.  `fin`: the finishing thread
+    (utils/server.Finisher), when the warmup made it; the loop closes it."""
     from psa_torch.config import CONFIG
     from psa_torch.utils.server import Finisher, dispatch_query_lines
 
@@ -673,7 +831,7 @@ def _serve_loop(args, reader, device, mesh=None) -> int:
     served = 0
     queued: list = []
     eof = False
-    fin = Finisher()               # fetches complete FIFO off the loop
+    fin = fin or Finisher()        # fetches complete FIFO off the loop
 
     def flush(payload) -> int:
         nonlocal served

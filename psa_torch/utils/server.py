@@ -40,6 +40,7 @@ import socket
 import sys
 import threading
 import time
+import types
 from collections import deque
 
 
@@ -171,6 +172,14 @@ class Finisher:
         self._n += 1
         self._in.put((tag, pending))
 
+    def call(self, fn):
+        """Run fn() on the finisher thread and return its result (its
+        exception re-raises here), with nothing else in flight: the serve
+        warmup finishes its chunks this way, so the thread that finishes
+        the clients' chunks has run one before them."""
+        self.submit(types.SimpleNamespace(finish=fn))
+        return self.collect(timeout=None)[1]
+
     @property
     def inflight(self) -> int:
         return self._n
@@ -257,7 +266,7 @@ class TCPQueryServer:
 
     def __init__(self, host: str, port: int, *, backend: str, lenient: bool,
                  json_out: bool, device, max_batch: int, quiet: bool,
-                 mesh=None):
+                 mesh=None, finisher: Finisher | None = None):
         from psa_torch.config import CONFIG
 
         self._addr = (host, port)
@@ -275,6 +284,8 @@ class TCPQueryServer:
         self._stop = False
         self._served = 0
         self._fin: Finisher | None = None   # set for run()'s lifetime
+        # a finisher made (and warmed) before the server; run() closes it
+        self._given_fin = finisher
         self.bound_addr: tuple | None = None
 
     def request_stop(self, *_a) -> None:
@@ -291,6 +302,8 @@ class TCPQueryServer:
         except OSError as e:
             print(f"error: cannot listen on "
                   f"{self._addr[0]}:{self._addr[1]}: {e}", file=sys.stderr)
+            if self._given_fin is not None:
+                self._given_fin.close()
             return 2
         lsock.setblocking(False)
         self.bound_addr = lsock.getsockname()[:2]
@@ -305,7 +318,7 @@ class TCPQueryServer:
         old_int = signal.signal(signal.SIGINT, self.request_stop)
         old_term = signal.signal(signal.SIGTERM, self.request_stop)
         fifo: deque = deque()       # (conn, line) across every connection
-        self._fin = fin = Finisher()
+        self._fin = fin = self._given_fin or Finisher()
         abandon = True
         try:
             while not self._stop:
@@ -526,14 +539,20 @@ def parse_listen(listen: str):
 
 
 def serve_tcp(listen: str, *, backend: str, lenient: bool, json_out: bool,
-              device, max_batch: int, quiet: bool, mesh=None) -> int:
-    """CLI entry: parse HOST:PORT and run the server on the main thread."""
+              device, max_batch: int, quiet: bool, mesh=None,
+              finisher: Finisher | None = None) -> int:
+    """CLI entry: parse HOST:PORT and run the server on the main thread
+    (`finisher`: its finishing thread, made before it; the server closes
+    it)."""
     try:
         host, port = parse_listen(listen)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
+        if finisher is not None:
+            finisher.close()
         return 2
     server = TCPQueryServer(host, port, backend=backend, lenient=lenient,
                             json_out=json_out, device=device,
-                            max_batch=max_batch, quiet=quiet, mesh=mesh)
+                            max_batch=max_batch, quiet=quiet, mesh=mesh,
+                            finisher=finisher)
     return server.run()

@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA sweep kernels and the
 top-k epilogue kernel against their plain PyTorch versions, the engine, the batch path, the TCP serving
-tier and the kernel lab on the card against the host oracle.
+tier, the serve warm start and the kernel lab on the card against the host oracle.
 They skip without a CUDA device.  This file imports neither JAX nor psa_tpu,
 so it also runs where JAX is not installed:
 
@@ -450,6 +450,48 @@ def test_tcp_serve_on_card_matches_native(cuda, shared):
     shared_n = sw.launches_batched_shared - before[1]
     assert (shared_n if shared else per_row) > 0
     assert native.calls["search"] == before[2]
+
+
+class _NoNvcc:
+    """Stands in for the subprocess module of ops/sweep: a build raises."""
+
+    @staticmethod
+    def Popen(*a, **k):
+        raise AssertionError("nvcc ran after the warmup")
+
+    run = Popen
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_warmed_bucket_chunk_allocates_no_segment(cuda, shared, monkeypatch):
+    """After `warm_fused_runner` at B = 256 on the serve path's bucket (the
+    batch workload's 2048 x 512), a real 256-line chunk of that bucket
+    allocates no new device segment and runs no nvcc; its replies equal
+    the native engine's."""
+    ref = random_sequences(2048, 1, seed=0)[0]
+    lines = []
+    for s in range(256):
+        s1, s2 = random_sequences(2048, 512, seed=s)
+        lines.append(f"1 3 4 2 {ref if shared else s1} {s2} minimum")
+    want = server.process_query_lines(lines, backend="native", lenient=False,
+                                      json_out=False)[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    l1k, l2p = sw.bucket_shape(2048, 512)
+    batch.warm_fused_runner(build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False), 256,
+                            l1k, l2p, cuda, shared_s1=shared)
+    assert sw._lib is not None
+    monkeypatch.setattr(sw, "subprocess", _NoNvcc)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["segment.all.allocated"]
+    kernels = (sw.launches_batched, sw.launches_batched_shared)
+    got = server.dispatch_query_lines(lines, backend="torch", lenient=False,
+                                      json_out=False, device=cuda).finish()[0]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == before
+    assert got == want
+    launched = (sw.launches_batched - kernels[0], sw.launches_batched_shared - kernels[1])
+    assert launched == ((0, 1) if shared else (1, 0))
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (4, 1), (8, 1), (1, 2), (2, 2), (2, 4)])

@@ -41,7 +41,8 @@ def test_import_leaves_no_jax_or_psa_tpu():
 def test_static_scan_finds_no_jax_or_psa_tpu_import():
     files = sorted(f for f in (ROOT / "psa_torch").rglob("*.py")
                    if "_build" not in f.relative_to(ROOT).parts)
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+              ROOT / "examples" / "library_usage_torch.py"]
     assert len(files) > 10
     for f in ("models/batch.py", "ops/_sweep_v2.py", "ops/_sweep_v3.py",
               "utils/kernel_lab.py", "utils/lab_ab.py", "native/__init__.py",

@@ -55,6 +55,7 @@ from psa_torch.core.alphabet import (
     NUM_LETTERS,
     PAD_CODE,
 )
+from psa_torch.utils import spans
 
 # Sign classes (device encoding; the reference uses chars '*' ':' '.' '_').
 SIGN_AST = 0
@@ -380,13 +381,14 @@ def device_tables(tables: ScoringTables, device) -> DeviceTables:
     """Upload the weight-dependent tables to `device` (once per engine)."""
     import torch
 
-    diff32 = np.concatenate([tables.diff_vals.astype(np.float32),
-                             [np.float32(0.0)]])
-    return DeviceTables(
-        tables=tables,
-        code=torch.from_numpy(np.ascontiguousarray(tables.code)).to(device),
-        w32=torch.from_numpy(tables.w_signed.astype(np.float32)).to(device),
-        diff32=torch.from_numpy(diff32).to(device))
+    with spans.span("device_tables"):
+        diff32 = np.concatenate([tables.diff_vals.astype(np.float32),
+                                 [np.float32(0.0)]])
+        return DeviceTables(
+            tables=tables,
+            code=torch.from_numpy(np.ascontiguousarray(tables.code)).to(device),
+            w32=torch.from_numpy(tables.w_signed.astype(np.float32)).to(device),
+            diff32=torch.from_numpy(diff32).to(device))
 
 
 _DEVICE_TABLES_CACHE: dict = {}

@@ -66,6 +66,7 @@ from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
 from psa_torch.ops.sweep import (bucket_shape, offset_stats, plan_bucket,
                                  plan_shapes, sweep, sweep_batched,
                                  sweep_batched_shared, upload_codes)
+from psa_torch.utils import spans
 
 __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
            "pack_epilogue_outputs", "unpack_epilogue_outputs",
@@ -82,8 +83,10 @@ def run_exact(c1d: torch.Tensor, c2d: torch.Tensor, noff: int,
     and pack (ops/epilogue.epilogue_pack: the kernel on the card).
     Returns (packed (1, 6k+2) int32, stats5 (5, noff_pad)); both stay on
     the device."""
-    stats5 = sweep(c1d, c2d, dtabs.code)
-    return epilogue_pack(stats5[None], dtabs, noff, c2d.shape[0], k), stats5
+    with spans.span("launch"):
+        stats5 = sweep(c1d, c2d, dtabs.code)
+        return (epilogue_pack(stats5[None], dtabs, noff, c2d.shape[0], k),
+                stats5)
 
 
 def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
@@ -92,26 +95,29 @@ def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
     """Bit-exact host selection from one fetched epilogue buffer (None = no
     mutation exists).  When more than k offsets fall in the f32 band, the
     full stats come from the sweep output already on the device."""
-    topi, stats_k, near, best = unpack_epilogue_outputs(buf, k)
-    if np.isneginf(best[0]):
-        return None
-    n2 = codes2.shape[0]
-    if near[0] > k:
-        st = stats5[:, :noff].cpu().numpy()
-        try:
-            return select_best(st[:4].T, st[4], tables, codes1, codes2)
-        except NoMutationFound:
+    with spans.span("host_select"):
+        topi, stats_k, near, best = unpack_epilogue_outputs(buf, k)
+        if np.isneginf(best[0]):
             return None
-    idx = topi[0]
-    st = stats_k[0].T                                    # (k, 5)
-    keep = (idx < noff) & (st[:, 4] >= 0)
-    idx, st = idx[keep], st[keep]
-    order = np.argsort(idx, kind="stable")
-    idx, st = idx[order], st[order]
-    totals = totals_from_stats(st[:, :4], st[:, 4], tables)
-    bq = totals.max() if tables.is_max else totals.min()
-    cand = idx[np.abs(totals - bq) <= candidate_epsilon(tables, n2)]
-    return pick_from_candidates(codes1, codes2, tables, cand)
+        n2 = codes2.shape[0]
+        if near[0] > k:
+            with spans.span("near_fallback"):
+                st = stats5[:, :noff].cpu().numpy()
+                try:
+                    return select_best(st[:4].T, st[4], tables, codes1,
+                                       codes2)
+                except NoMutationFound:
+                    return None
+        idx = topi[0]
+        st = stats_k[0].T                                    # (k, 5)
+        keep = (idx < noff) & (st[:, 4] >= 0)
+        idx, st = idx[keep], st[keep]
+        order = np.argsort(idx, kind="stable")
+        idx, st = idx[order], st[order]
+        totals = totals_from_stats(st[:, :4], st[:, 4], tables)
+        bq = totals.max() if tables.is_max else totals.min()
+        cand = idx[np.abs(totals - bq) <= candidate_epsilon(tables, n2)]
+        return pick_from_candidates(codes1, codes2, tables, cand)
 
 
 def search_exact(codes1: np.ndarray, codes2: np.ndarray, dtabs: DeviceTables,
@@ -119,13 +125,15 @@ def search_exact(codes1: np.ndarray, codes2: np.ndarray, dtabs: DeviceTables,
     """One query end to end on `dtabs`' device: one upload of both
     sequences (one pinned buffer on the card), the sweep and epilogue, one
     fetch, host selection."""
-    codes1 = np.asarray(codes1, np.int32)
-    codes2 = np.asarray(codes2, np.int32)
+    with spans.span("encode"):
+        codes1 = np.asarray(codes1, np.int32)
+        codes2 = np.asarray(codes2, np.int32)
     noff, _, l2p, l1k = plan_shapes(codes1.shape[0], codes2.shape[0])
     c1d, c2d = upload_codes(dtabs.code.device, (codes1, l1k), (codes2, l2p))
     packed, stats5 = run_exact(c1d, c2d, noff, dtabs, k)
-    return host_select(codes1, codes2, noff, dtabs.tables,
-                       packed.cpu().numpy(), stats5, k)
+    with spans.span("fetch_wait"):
+        buf = packed.cpu().numpy()
+    return host_select(codes1, codes2, noff, dtabs.tables, buf, stats5, k)
 
 
 # --- the batch path ---------------------------------------------------------
@@ -155,12 +163,14 @@ def upload_rows(a: np.ndarray, device: torch.device):
     """(host tensor, device tensor) of a numpy array in one host-to-device
     copy.  On the card the host side is pinned, so the copy is
     asynchronous; the host tensor must stay alive until it has run."""
-    a = np.ascontiguousarray(a)
-    if device.type == "cpu":
-        t = torch.from_numpy(a)
-        return t, t
-    host = torch.from_numpy(a).pin_memory()
-    return host, host.to(device, non_blocking=True)
+    with spans.span("upload") as sp:
+        a = np.ascontiguousarray(a)
+        sp.set(bytes=int(a.nbytes))
+        if device.type == "cpu":
+            t = torch.from_numpy(a)
+            return t, t
+        host = torch.from_numpy(a).pin_memory()
+        return host, host.to(device, non_blocking=True)
 
 
 def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
@@ -171,14 +181,15 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
     `sweep` launch per query, a cross-check path), then the top-k epilogue
     and pack of every row (ops/epilogue.epilogue_pack).  Returns the packed
     (n, 6k+2) int32 buffer on the device."""
-    if shared_s1:
-        stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
-    elif fused:
-        stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code)
-    else:
-        stats5 = torch.stack([sweep(c1d[r], c2d[r], dtabs.code)
-                              for r in range(c2d.shape[0])])
-    return epilogue_pack(stats5, dtabs, noffd, c2d.shape[1], k)
+    with spans.span("launch", rows=int(c2d.shape[0])):
+        if shared_s1:
+            stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
+        elif fused:
+            stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code)
+        else:
+            stats5 = torch.stack([sweep(c1d[r], c2d[r], dtabs.code)
+                                  for r in range(c2d.shape[0])])
+        return epilogue_pack(stats5, dtabs, noffd, c2d.shape[1], k)
 
 
 @dataclasses.dataclass
@@ -192,9 +203,10 @@ class Fetch:
     keep: tuple = ()
 
     def wait(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.out.numpy()
+        with spans.span("fetch_wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return self.out.numpy()
 
 
 def start_fetch(packed: torch.Tensor, keep: tuple = ()) -> Fetch:
@@ -436,24 +448,27 @@ def _host_select(c1b, c2b, noffs, n2s, dtabs: DeviceTables, topi, stats_k,
     Rows with near > k need every offset's stats: the row is swept again
     alone on `dtabs`' device (the same integers the batch computed) and
     selected from them."""
-    tables = dtabs.tables
-    results: list = [None] * c1b.shape[0]
-    nomut = np.isneginf(best)
-    fallback = (~nomut) & (near > k)
-    main = (~nomut) & (~fallback)
-    if main.any():
-        _select_rows_vectorized(results, np.nonzero(main)[0], c1b, c2b,
-                                noffs, n2s, tables, topi, stats_k)
-    for q in np.nonzero(fallback)[0]:
-        noff, n2 = int(noffs[q]), int(n2s[q])
-        c1 = c1b[q][: noff + n2 - 1].astype(np.int32)
-        c2 = c2b[q][: n2].astype(np.int32)
-        counts, maxrank = offset_stats(c1, c2, tables, dtabs.code.device)
-        try:
-            results[q] = select_best(counts, maxrank, tables, c1, c2)
-        except NoMutationFound:
-            results[q] = None
-    return results
+    with spans.span("host_select"):
+        tables = dtabs.tables
+        results: list = [None] * c1b.shape[0]
+        nomut = np.isneginf(best)
+        fallback = (~nomut) & (near > k)
+        main = (~nomut) & (~fallback)
+        if main.any():
+            _select_rows_vectorized(results, np.nonzero(main)[0], c1b, c2b,
+                                    noffs, n2s, tables, topi, stats_k)
+        for q in np.nonzero(fallback)[0]:
+            with spans.span("near_fallback"):
+                noff, n2 = int(noffs[q]), int(n2s[q])
+                c1 = c1b[q][: noff + n2 - 1].astype(np.int32)
+                c2 = c2b[q][: n2].astype(np.int32)
+                counts, maxrank = offset_stats(c1, c2, tables,
+                                               dtabs.code.device)
+                try:
+                    results[q] = select_best(counts, maxrank, tables, c1, c2)
+                except NoMutationFound:
+                    results[q] = None
+        return results
 
 
 def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
@@ -492,7 +507,8 @@ def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
 
     rescore = (native.rescore_multi_native if native.available()
                else rescore_multi)
-    totals_seq, coffs, subs = rescore(c1b, c2b, n2s, tables, qidx, offs)
+    with spans.span("rescore", candidates=int(offs.shape[0])):
+        totals_seq, coffs, subs = rescore(c1b, c2b, n2s, tables, qidx, offs)
     totals_seq = np.where(coffs >= 0, totals_seq, badv)
 
     # per-group winner: best total, first occurrence in ascending order
@@ -577,7 +593,27 @@ def search_batch_async(queries, backend: str = "torch",
 def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
                        mesh, defer: bool):
     """Shared body of search_batch and search_batch_async -> (handles,
-    finish)."""
+    finish), under one `search_batch` span; `finish` runs its work under
+    that span on whatever thread calls it."""
+    with spans.span("search_batch", queries=len(queries)) as root:
+        handles, finishers, results = _dispatch_buckets(
+            queries, backend, strict_alphabet, device, mesh, defer)
+
+    def finish():
+        with spans.within(root):
+            for fin in finishers:
+                fin()
+        return results
+
+    return handles, finish
+
+
+def _dispatch_buckets(queries, backend: str, strict_alphabet: bool, device,
+                      mesh, defer: bool):
+    """Validate, bucket and encode `queries`, then run or dispatch every
+    bucket -> (handles, finishers, results): with `defer` the device buckets
+    are in flight and the finishers select them and run the host-engine
+    buckets; without it every bucket has run and the finishers are none."""
     if backend == "hybrid":
         # the hybrid split divides ONE query's offsets (cpu_funcs.c:144-150);
         # a batch gets its parallelism from the query axis
@@ -600,8 +636,9 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
         dev = resolve_device(device)
     results: list = [None] * len(queries)
     if strict_alphabet and queries:
-        ok = (validate_batch([q.seq1 for q in queries])
-              & validate_batch([q.seq2 for q in queries]))
+        with spans.span("validate"):
+            ok = (validate_batch([q.seq1 for q in queries])
+                  & validate_batch([q.seq2 for q in queries]))
         if not ok.all():
             raise ValueError(f"case {int(np.argmin(ok))}: {ALPHABET_ERROR}")
     buckets: dict = {}
@@ -630,12 +667,13 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
                 fin_host()
             continue
         tables = build_tables_cached(np.asarray(w), is_max)
-        noffs = np.array([len(queries[i].seq1) - len(queries[i].seq2) + 1
-                          for i in idxs], np.int32)
-        _, l1k = plan_bucket(noffs, l2p)
-        c1b = encode_batch_padded([queries[i].seq1 for i in idxs], l1k)
-        c2b = encode_batch_padded([queries[i].seq2 for i in idxs], l2p)
-        n2s = np.array([len(queries[i].seq2) for i in idxs], np.int32)
+        with spans.span("encode", rows=len(idxs)):
+            noffs = np.array([len(queries[i].seq1) - len(queries[i].seq2) + 1
+                              for i in idxs], np.int32)
+            _, l1k = plan_bucket(noffs, l2p)
+            c1b = encode_batch_padded([queries[i].seq1 for i in idxs], l1k)
+            c2b = encode_batch_padded([queries[i].seq2 for i in idxs], l2p)
+            n2s = np.array([len(queries[i].seq2) for i in idxs], np.int32)
         # string equality guarantees identical encoded rows
         s1_0 = queries[idxs[0]].seq1
         shared_s1 = (len(idxs) > 1
@@ -662,9 +700,4 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
 
         finishers.append(fin_device)
 
-    def finish():
-        for fin in finishers:
-            fin()
-        return results
-
-    return handles, finish
+    return handles, finishers, results

@@ -50,6 +50,7 @@ from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (ScoringTables, build_tables_cached,
                                    device_tables)
 from psa_torch.ops.select import select_best
+from psa_torch.utils import spans
 
 _BACKENDS = ("torch", "numpy", "native", "auto", "hybrid", "xla", "conv")
 # the backends that run on a device (the rest run on the host)
@@ -149,8 +150,9 @@ class AlignmentSearchEngine:
         return offset_stats(codes1, codes2, self.tables, self.device)
 
     def search_codes(self, codes1: np.ndarray, codes2: np.ndarray) -> SearchResult:
-        codes1 = np.asarray(codes1, dtype=np.int32)
-        codes2 = np.asarray(codes2, dtype=np.int32)
+        with spans.span("encode"):
+            codes1 = np.asarray(codes1, dtype=np.int32)
+            codes2 = np.asarray(codes2, dtype=np.int32)
         if codes2.shape[0] > codes1.shape[0]:
             raise ValueError("seq2 must not be longer than seq1")
         backend = self._resolve_backend(codes1, codes2)
@@ -242,12 +244,18 @@ class AlignmentSearchEngine:
         return host if host_better else dev
 
     def search(self, seq1: str, seq2: str) -> SearchResult:
-        if self.strict_alphabet and not (validate(seq1) and validate(seq2)):
-            raise ValueError(
-                "sequences must contain only A-Z and '-' "
-                "(pass strict_alphabet=False to accept reference-UB inputs)"
-            )
-        return self.search_codes(encode(seq1), encode(seq2))
+        with spans.span("search"):
+            if self.strict_alphabet:
+                with spans.span("validate"):
+                    ok = validate(seq1) and validate(seq2)
+                if not ok:
+                    raise ValueError(
+                        "sequences must contain only A-Z and '-' "
+                        "(pass strict_alphabet=False to accept reference-UB "
+                        "inputs)")
+            with spans.span("encode"):
+                codes1, codes2 = encode(seq1), encode(seq2)
+            return self.search_codes(codes1, codes2)
 
 
 def search(seq1: str, seq2: str, weights: Sequence[float], is_max: bool,

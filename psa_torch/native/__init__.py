@@ -27,6 +27,7 @@ import numpy as np
 
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import ScoringTables
+from psa_torch.utils import spans
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "psa_native.cpp")
@@ -129,58 +130,66 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        path = lib_path()
-        if not os.path.exists(path):
-            _build(path)
-        lib = ctypes.CDLL(path)
-        lib.psa_search.restype = ctypes.c_int
-        lib.psa_search.argtypes = [
-            _i32p, ctypes.c_int32, _i32p, ctypes.c_int32,
-            _f64p, _f64p, _i8p,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-        ]
-        lib.psa_score_offset.restype = None
-        lib.psa_score_offset.argtypes = [
-            _i32p, _i32p, ctypes.c_int32,
-            _f64p, _f64p, _i8p,
-            ctypes.c_int32, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32),
-        ]
-        lib.psa_offset_stats.restype = None
-        lib.psa_offset_stats.argtypes = [
-            _i32p, _i32p, ctypes.c_int32, _i8p, _i8p,
-            ctypes.c_int32, ctypes.c_int32, _i32p, _i32p,
-        ]
-        lib.psa_parse_chunk.restype = None
-        lib.psa_parse_chunk.argtypes = [
-            ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32, ctypes.c_int32,
-            _i8p, _i32p, _f64p, _i8p, _i32p, _i32p, _i32p, _i32p,
-        ]
-        lib.psa_encode_padded.restype = None
-        lib.psa_encode_padded.argtypes = [
-            ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32,
-            _i8p, ctypes.c_int32,
-        ]
-        lib.psa_rescore_multi.restype = None
-        lib.psa_rescore_multi.argtypes = [
-            _i32p, ctypes.c_int32, _i32p, ctypes.c_int32, _i32p,
-            _f64p, _f64p, _i8p, ctypes.c_int32,
-            _i32p, _i64p, ctypes.c_int32,
-            _f64p, _i32p, _i32p,
-        ]
-        lib.psa_rescore_batch.restype = None
-        lib.psa_rescore_batch.argtypes = [
-            _i32p, _i32p, ctypes.c_int32,
-            _f64p, _f64p, _i8p, ctypes.c_int32,
-            _i64p, ctypes.c_int32,
-            _f64p, _i32p, _i32p,
-        ]
-        _self_test(lib)
-        _lib = lib
-        return lib
+        with spans.span("native_load", built=0) as sp:
+            _lib = _load(sp)
+        return _lib
+
+
+def _load(sp):
+    """`get_lib`'s first call: the build when the file is missing (`sp`'s
+    `built` set to 1), the load, the bindings and the self-test."""
+    path = lib_path()
+    if not os.path.exists(path):
+        sp.set(built=1)
+        _build(path)
+    lib = ctypes.CDLL(path)
+    lib.psa_search.restype = ctypes.c_int
+    lib.psa_search.argtypes = [
+        _i32p, ctypes.c_int32, _i32p, ctypes.c_int32,
+        _f64p, _f64p, _i8p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.psa_score_offset.restype = None
+    lib.psa_score_offset.argtypes = [
+        _i32p, _i32p, ctypes.c_int32,
+        _f64p, _f64p, _i8p,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.psa_offset_stats.restype = None
+    lib.psa_offset_stats.argtypes = [
+        _i32p, _i32p, ctypes.c_int32, _i8p, _i8p,
+        ctypes.c_int32, ctypes.c_int32, _i32p, _i32p,
+    ]
+    lib.psa_parse_chunk.restype = None
+    lib.psa_parse_chunk.argtypes = [
+        ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32, ctypes.c_int32,
+        _i8p, _i32p, _f64p, _i8p, _i32p, _i32p, _i32p, _i32p,
+    ]
+    lib.psa_encode_padded.restype = None
+    lib.psa_encode_padded.argtypes = [
+        ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32,
+        _i8p, ctypes.c_int32,
+    ]
+    lib.psa_rescore_multi.restype = None
+    lib.psa_rescore_multi.argtypes = [
+        _i32p, ctypes.c_int32, _i32p, ctypes.c_int32, _i32p,
+        _f64p, _f64p, _i8p, ctypes.c_int32,
+        _i32p, _i64p, ctypes.c_int32,
+        _f64p, _i32p, _i32p,
+    ]
+    lib.psa_rescore_batch.restype = None
+    lib.psa_rescore_batch.argtypes = [
+        _i32p, _i32p, ctypes.c_int32,
+        _f64p, _f64p, _i8p, ctypes.c_int32,
+        _i64p, ctypes.c_int32,
+        _f64p, _i32p, _i32p,
+    ]
+    _self_test(lib)
+    return lib
 
 
 def available() -> bool:

@@ -30,6 +30,7 @@ from psa_torch.config import CONFIG
 from psa_torch.core.oracle import rescore_candidates
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import ScoringTables
+from psa_torch.utils import spans
 
 
 def candidate_epsilon(tables: ScoringTables, n2):
@@ -102,7 +103,8 @@ def pick_from_candidates(codes1: np.ndarray, codes2: np.ndarray,
     """
     rescore = (native.rescore_batch_native if native.available()
                else rescore_candidates)
-    seq_totals, coffs, subs = rescore(codes1, codes2, tables, cand)
+    with spans.span("rescore", candidates=int(len(cand))):
+        seq_totals, coffs, subs = rescore(codes1, codes2, tables, cand)
     ok = coffs >= 0
     seq_totals = np.where(ok, seq_totals, -np.inf if tables.is_max else np.inf)
     if not ok.any():

@@ -41,6 +41,7 @@ import torch
 from psa_torch.core.alphabet import PAD_CODE
 from psa_torch.core.tables import ScoringTables
 from psa_torch.ops.common import round_up
+from psa_torch.utils import spans
 
 TILE_O = 256     # offsets per warp tile (csrc/sweep_core.cuh kGranule)
 L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
@@ -101,22 +102,25 @@ def upload_codes(device, *seqs) -> tuple[torch.Tensor, ...]:
     buffer until the stream has run it).  A view starts at the sum of the
     lengths before it: with Seq1 padded to l1k, a multiple of L2_ALIGN on
     every path, Seq2 keeps the sweeps' 16-byte alignment."""
-    device = torch.device(device)
-    seqs = [(np.asarray(codes), length) for codes, length in seqs]
-    for codes, length in seqs:
-        if codes.shape[0] > length:
-            raise ValueError(f"sequence length {codes.shape[0]} exceeds padded "
-                             f"length {length}")
-    ends = np.cumsum([length for _, length in seqs]).tolist()
-    starts = [0, *ends[:-1]]
-    host = torch.empty(ends[-1], dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    buf = host.numpy()
-    buf.fill(PAD_CODE)
-    for (codes, _), at in zip(seqs, starts):
-        buf[at: at + codes.shape[0]] = codes
-    dev = host if device.type == "cpu" else host.to(device, non_blocking=True)
-    return tuple(dev[a:b] for a, b in zip(starts, ends))
+    with spans.span("upload") as sp:
+        device = torch.device(device)
+        seqs = [(np.asarray(codes), length) for codes, length in seqs]
+        for codes, length in seqs:
+            if codes.shape[0] > length:
+                raise ValueError(f"sequence length {codes.shape[0]} exceeds "
+                                 f"padded length {length}")
+        ends = np.cumsum([length for _, length in seqs]).tolist()
+        starts = [0, *ends[:-1]]
+        sp.set(bytes=int(ends[-1]))
+        host = torch.empty(ends[-1], dtype=torch.uint8,
+                           pin_memory=device.type == "cuda")
+        buf = host.numpy()
+        buf.fill(PAD_CODE)
+        for (codes, _), at in zip(seqs, starts):
+            buf[at: at + codes.shape[0]] = codes
+        dev = (host if device.type == "cpu"
+               else host.to(device, non_blocking=True))
+        return tuple(dev[a:b] for a, b in zip(starts, ends))
 
 
 def _build_tag() -> str:
@@ -136,9 +140,18 @@ def build_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
+    with spans.span("build_library", built=0) as sp:
+        _lib = _build_and_load(sp)
+    return _lib
+
+
+def _build_and_load(sp) -> ctypes.CDLL:
+    """`build_library`'s work past its cache: the hash, nvcc when the
+    library is missing (`sp`'s `built` set to 1), the load and the checks."""
     tag = _build_tag()
     so = _BUILD_DIR / f"libpsa_sweep_{tag}.so"
     if not so.exists():
+        sp.set(built=1)
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
             raise RuntimeError("nvcc not found: the CUDA sweep kernels cannot be built")
@@ -205,7 +218,6 @@ def build_library() -> ctypes.CDLL:
          lib.psa_sweep_mma_tile(), lib.psa_sweep_mma_chunk())
             != (TILE_O, L2_ALIGN, SEG, MMA_TILE, MMA_CHUNK)):
         raise RuntimeError("csrc tile constants disagree with ops/sweep.py")
-    _lib = lib
     return lib
 
 

@@ -1,64 +1,16 @@
-"""Profiling and throughput accounting.
+"""The device trace: `trace` wraps `torch.profiler` for `psa-torch --trace
+LOGDIR`, one Chrome/Perfetto JSON file per traced run, which TensorBoard's
+profiler plugin, chrome://tracing and ui.perfetto.dev read.  The file holds
+the program's own spans (utils/spans.py, as "psa.<name>" annotations) on the
+same timeline as the kernels and copies.
 
 The reference's only instrumentation is one MPI_Wtime pair around the search
-(cpu_funcs.c:57-62).  Here, as in the JAX package's utils/profiling.py:
-
-* `Phase` timers give per-stage wall times (prepare/sweep/select),
-* `pair_evals` computes the north-star work metric (BASELINE.json),
-* `trace` wraps `torch.profiler` for a device trace (`psa-torch --trace
-  LOGDIR`): one Chrome/Perfetto JSON file per traced run, which
-  TensorBoard's profiler plugin, chrome://tracing and ui.perfetto.dev read.
+(cpu_funcs.c:57-62).  The program times its steps with utils/spans.py.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
-import time
-
-from psa_torch.models import search
-
-
-@dataclasses.dataclass
-class Phase:
-    name: str
-    seconds: float = 0.0
-    calls: int = 0
-
-
-class Timer:
-    """Accumulating phase timer: with t.phase("sweep"): ..."""
-
-    def __init__(self):
-        self.phases: dict[str, Phase] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            p = self.phases.setdefault(name, Phase(name))
-            p.seconds += time.perf_counter() - t0
-            p.calls += 1
-
-    def report(self) -> str:
-        width = max((len(n) for n in self.phases), default=4)
-        lines = [
-            f"{p.name:<{width}}  {p.seconds * 1e3:10.2f} ms  ({p.calls} calls)"
-            for p in self.phases.values()
-        ]
-        return "\n".join(lines)
-
-
-def pair_evals(n1: int, n2: int) -> float:
-    """Offset-position pair evaluations for one sweep (the work unit)."""
-    return float(search.pair_evals(n1, n2))
-
-
-def throughput(n1: int, n2: int, seconds: float, chips: int = 1) -> float:
-    """pair-evals / second / chip."""
-    return pair_evals(n1, n2) / seconds / max(chips, 1)
 
 
 @contextlib.contextmanager

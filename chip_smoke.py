@@ -651,7 +651,7 @@ def write_batch_cases(path: Path, generator, random_sequences) -> int:
 
 def batch_split(torch, batch, alphabet, queries, dtabs, shared: bool, runs: int):
     """The batch path for one 1024-query bucket, phase by phase with a
-    synchronise after each: host prep (validation, encode), upload, device
+    synchronise after each: host prep (the checked encode), upload, device
     (kernel, epilogue, pack), fetch, host selection.  Median ms per phase
     over `runs` warm runs; returns (split, results of the last run, queries
     of the last run whose f32 band held more than k offsets, the near > k
@@ -662,14 +662,12 @@ def batch_split(torch, batch, alphabet, queries, dtabs, shared: bool, runs: int)
     for it in range(runs + 2):
         torch.cuda.synchronize()
         t = [time.perf_counter()]
-        ok = (alphabet.validate_batch([q.seq1 for q in queries])
-              & alphabet.validate_batch([q.seq2 for q in queries]))
-        assert ok.all()
         _, _, l2p, _ = batch.plan_shapes(len(queries[0].seq1), len(queries[0].seq2))
         noffs = np.array([len(q.seq1) - len(q.seq2) + 1 for q in queries], np.int32)
         _, l1k = batch.plan_bucket(noffs, l2p)
-        c1b = alphabet.encode_batch_padded([q.seq1 for q in queries], l1k)
-        c2b = alphabet.encode_batch_padded([q.seq2 for q in queries], l2p)
+        c1b, ok1 = alphabet.encode_batch_checked([q.seq1 for q in queries], l1k)
+        c2b, ok2 = alphabet.encode_batch_checked([q.seq2 for q in queries], l2p)
+        assert (ok1 & ok2).all()
         n2s = np.array([len(q.seq2) for q in queries], np.int32)
         t.append(time.perf_counter())
         _, c1d = batch.upload_rows(c1b[0] if shared else c1b, dev)
@@ -2693,7 +2691,7 @@ def main() -> int:
     if batch_launches["epilogue"] != (batch_launches["sweep_batched"]
                                       + batch_launches["sweep_batched_shared"]):
         return fail("the batch path did not run one epilogue kernel per batched launch")
-    if min(batch_native.get(k, 0) for k in ("rescore_multi", "encode_padded")) < 1:
+    if min(batch_native.get(k, 0) for k in ("rescore_multi", "encode_checked")) < 1:
         return fail("the batch path's host prep or selection did not run native")
     emit({"phase": "batch_8_microbatches", "queries": len(wide),
           "first_call_s": wide_s, "first_1024_equal": wide_res[:BATCH["b"]] == bres["per_row"]})

@@ -27,21 +27,41 @@ NCODES = 29
 # Table dimension: the fused code table is (NCODES_PAD, NCODES_PAD).
 NCODES_PAD = 32
 
-_ENC = np.full(256, OTHER_CODE, dtype=np.int32)
-for _i in range(NUM_LETTERS):
-    _ENC[ord("A") + _i] = _i
-_ENC[ord("-")] = HYPHEN_CODE
-_ENC8 = _ENC.astype(np.uint8)
+_ENC8 = np.full(256, OTHER_CODE, np.uint8)     # byte -> code
+_ENC8[ord("A"): ord("A") + NUM_LETTERS] = np.arange(NUM_LETTERS)
+_ENC8[ord("-")] = HYPHEN_CODE
+_TRANS8 = _ENC8.tobytes()           # the same table for bytes.translate
+_OTHER8 = bytes([OTHER_CODE])
 
 _DEC = np.array([chr(ord("A") + i) for i in range(NUM_LETTERS)] + ["-", "?", "."])
 
 
-def encode(seq: str | bytes) -> np.ndarray:
-    """Encode a sequence string into int32 codes (vectorized)."""
+def _ascii(seq: str | bytes) -> bytes:
+    """A sequence's bytes: one byte a character, a non-ASCII one as '?'."""
     if isinstance(seq, str):
-        seq = seq.encode("ascii", errors="replace")
-    raw = np.frombuffer(seq, dtype=np.uint8)
-    return _ENC[raw].copy()
+        return seq.encode("ascii", errors="replace")
+    return seq
+
+
+def encode_checked(seq: str | bytes) -> tuple[np.ndarray, bool]:
+    """One pass from a sequence to the kernels' uint8 codes, and whether
+    every character is in the alphabet (A-Z, '-'), read from that pass:
+    the native library's checked encode when it builds, else
+    `bytes.translate` through the same table and a search for OTHER_CODE.
+    The codes are `encode`'s, the flag `validate`'s."""
+    from psa_torch import native    # the library's module imports this one
+
+    raw = _ascii(seq)
+    if native.available():
+        codes, ok = native.encode_checked_native([raw], len(raw))
+        return codes[0], bool(ok[0])
+    codes = bytearray(raw).translate(_TRANS8)
+    return np.frombuffer(codes, np.uint8), _OTHER8 not in codes
+
+
+def encode(seq: str | bytes) -> np.ndarray:
+    """Encode a sequence string into int32 codes."""
+    return encode_checked(seq)[0].astype(np.int32)
 
 
 def decode(codes: np.ndarray) -> str:
@@ -64,38 +84,35 @@ def pad_codes(codes: np.ndarray, length: int) -> np.ndarray:
     return out
 
 
-def validate(seq: str) -> bool:
+def validate(seq: str | bytes) -> bool:
     """True when every character is in the engine's defined alphabet (A-Z, '-')."""
-    raw = np.frombuffer(seq.encode("ascii", errors="replace"), np.uint8)
-    return bool(np.all(_ENC[raw] <= HYPHEN_CODE))
+    return encode_checked(seq)[1]
 
 
-def encode_batch_padded(seqs, length: int) -> np.ndarray:
+def encode_batch_checked(seqs,
+                         length: int) -> tuple[np.ndarray, np.ndarray]:
     """Encode many sequences into one PAD-padded (len(seqs), length) uint8
-    array (the kernels' input type, so the upload needs no cast): one C
-    pass of the native library when it builds, else one table gather over
-    the joined bytes and a copy per row; the same table and the same
-    bytes either way."""
+    array (the kernels' input type, so the upload needs no cast), with each
+    row's validity (A-Z and '-' only) read from the same pass: one C pass
+    of the native library when it builds, else a table gather and an
+    OTHER_CODE search a row; the same table and the same bytes either
+    way."""
     from psa_torch import native    # the library's module imports this one
 
-    n = len(seqs)
-    lens = np.fromiter((len(s) for s in seqs), np.int64, n)
-    if lens.size and int(lens.max()) > length:
-        i = int(np.argmax(lens))
+    raws = [_ascii(s) for s in seqs]
+    if raws and max(map(len, raws)) > length:
+        i = max(range(len(raws)), key=lambda i: len(raws[i]))
         raise ValueError(
             f"sequence length {len(seqs[i])} exceeds padded length {length}")
-    joined = "".join(seqs).encode("ascii", errors="replace")
     if native.available():
-        offs = np.zeros(n, np.int64)
-        np.cumsum(lens[:-1], out=offs[1:])
-        return native.encode_padded_native(joined, offs, lens, length)
-    codes = _ENC8[np.frombuffer(joined, np.uint8)]
-    buf = np.full((n, length), PAD_CODE, np.uint8)
-    o = 0
-    for i, s in enumerate(seqs):
-        buf[i, : len(s)] = codes[o: o + len(s)]
-        o += len(s)
-    return buf
+        return native.encode_checked_native(raws, length)
+    buf = np.full((len(raws), length), PAD_CODE, np.uint8)
+    ok = np.ones(len(raws), bool)
+    for i, raw in enumerate(raws):
+        row = buf[i, : len(raw)]
+        row[:] = _ENC8[np.frombuffer(raw, np.uint8)]
+        ok[i] = not (row == OTHER_CODE).any()
+    return buf, ok
 
 
 def validate_batch(seqs) -> np.ndarray:
@@ -116,10 +133,3 @@ def validate_batch(seqs) -> np.ndarray:
 
 ALPHABET_ERROR = ("sequences must contain only A-Z and '-' "
                   "(pass --lenient to accept reference-UB inputs)")
-
-
-def ensure_valid(seq1: str, seq2: str, lenient: bool = False) -> None:
-    """Raise ValueError(ALPHABET_ERROR) on out-of-alphabet chars in strict
-    mode — the one shared validation gate for every CLI surface."""
-    if not lenient and not (validate(seq1) and validate(seq2)):
-        raise ValueError(ALPHABET_ERROR)

@@ -49,7 +49,8 @@ import torch
 from psa_torch import native
 from psa_torch.config import CONFIG
 from psa_torch.core.alphabet import (ALPHABET_ERROR, NUM_LETTERS, PAD_CODE,
-                                     encode_batch_padded, validate_batch)
+                                     encode_batch_checked, encode_checked,
+                                     validate)
 from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
@@ -123,14 +124,16 @@ def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
 def search_exact(codes1: np.ndarray, codes2: np.ndarray, dtabs: DeviceTables,
                  k: int = TOPK) -> SearchResult | None:
     """One query end to end on `dtabs`' device: one upload of both
-    sequences (one pinned buffer on the card), the sweep and epilogue, one
-    fetch, host selection."""
-    with spans.span("encode"):
-        codes1 = np.asarray(codes1, np.int32)
-        codes2 = np.asarray(codes2, np.int32)
+    sequences' codes (int32, or the kernels' uint8 as they come; one pinned
+    buffer on the card), the sweep and epilogue, one fetch, host
+    selection."""
+    codes1, codes2 = np.asarray(codes1), np.asarray(codes2)
     noff, _, l2p, l1k = plan_shapes(codes1.shape[0], codes2.shape[0])
     c1d, c2d = upload_codes(dtabs.code.device, (codes1, l1k), (codes2, l2p))
     packed, stats5 = run_exact(c1d, c2d, noff, dtabs, k)
+    # host selection's re-score reads int32 codes: cast while the card sweeps
+    codes1 = codes1.astype(np.int32, copy=False)
+    codes2 = codes2.astype(np.int32, copy=False)
     with spans.span("fetch_wait"):
         buf = packed.cpu().numpy()
     return host_select(codes1, codes2, noff, dtabs.tables, buf, stats5, k)
@@ -526,20 +529,17 @@ def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
             sub_code=int(subs[w]), score=float(totals_seq[w]))
 
 
-def _host_engine_bucket(queries, idxs, results: list, w, is_max,
-                        host_backend: str, strict_alphabet: bool,
-                        device=None) -> None:
-    """Run one bucket query by query through the single-query engine: a host
-    engine ("native" or "numpy"), or a differential engine ("xla" or
-    "conv") on `device` (the bucket key guarantees shared (weights,
-    mode))."""
+def _host_engine_bucket(codes, idxs, results: list, w, is_max,
+                        host_backend: str, device=None) -> None:
+    """Run one bucket query by query through the single-query engine on its
+    codes ((codes1, codes2) a query, in `idxs`' order): a host engine
+    ("native" or "numpy"), or a differential engine ("xla" or "conv") on
+    `device` (the bucket key guarantees shared (weights, mode))."""
     eng = AlignmentSearchEngine(np.asarray(w), is_max, backend=host_backend,
-                                strict_alphabet=strict_alphabet,
                                 device=device)
-    for i in idxs:
-        q = queries[i]
+    for i, (c1, c2) in zip(idxs, codes):
         try:
-            results[i] = eng.search(q.seq1, q.seq2)
+            results[i] = eng.search_codes(c1, c2)
         except NoMutationFound:
             results[i] = None
 
@@ -608,12 +608,47 @@ def _search_batch_impl(queries, backend: str, strict_alphabet: bool, device,
     return handles, finish
 
 
+def _encode_buckets(queries, buckets: dict, backend: str):
+    """Each bucket's operands, every string encoded once -> (plans, bad):
+    a plan (weights, is_max, idxs, host engine or None, operands) a bucket,
+    whose operands are a device bucket's (c1b, c2b, noffs, n2s) or a
+    host-engine bucket's (codes1, codes2) a query; `bad` holds each
+    bucket's first case out of the alphabet."""
+    plans: list = []
+    bad: list = []
+    for (w, is_max, _, l2p), idxs in buckets.items():
+        host = (backend if backend in ("numpy", "native", "xla", "conv")
+                else None)
+        if (backend == "auto" and native.available()
+                and sum(pair_evals(len(queries[i].seq1), len(queries[i].seq2))
+                        for i in idxs) < CONFIG.auto_threshold):
+            host = "native"
+        if host is not None:
+            coded = [(encode_checked(queries[i].seq1),
+                      encode_checked(queries[i].seq2)) for i in idxs]
+            bad += [i for i, ((_, ok1), (_, ok2)) in zip(idxs, coded)
+                    if not (ok1 and ok2)][:1]
+            plans.append((w, is_max, idxs, host,
+                          [(c1, c2) for (c1, _), (c2, _) in coded]))
+            continue
+        noffs = np.array([len(queries[i].seq1) - len(queries[i].seq2) + 1
+                          for i in idxs], np.int32)
+        _, l1k = plan_bucket(noffs, l2p)
+        c1b, ok1 = encode_batch_checked([queries[i].seq1 for i in idxs], l1k)
+        c2b, ok2 = encode_batch_checked([queries[i].seq2 for i in idxs], l2p)
+        n2s = np.array([len(queries[i].seq2) for i in idxs], np.int32)
+        bad += [idxs[j] for j in np.flatnonzero(~(ok1 & ok2))[:1]]
+        plans.append((w, is_max, idxs, None, (c1b, c2b, noffs, n2s)))
+    return plans, bad
+
+
 def _dispatch_buckets(queries, backend: str, strict_alphabet: bool, device,
                       mesh, defer: bool):
-    """Validate, bucket and encode `queries`, then run or dispatch every
-    bucket -> (handles, finishers, results): with `defer` the device buckets
-    are in flight and the finishers select them and run the host-engine
-    buckets; without it every bucket has run and the finishers are none."""
+    """Bucket and encode `queries` (each string once, the alphabet check
+    read from that pass), then run or dispatch every bucket -> (handles,
+    finishers, results): with `defer` the device buckets are in flight and
+    the finishers select them and run the host-engine buckets; without it
+    every bucket has run and the finishers are none."""
     if backend == "hybrid":
         # the hybrid split divides ONE query's offsets (cpu_funcs.c:144-150);
         # a batch gets its parallelism from the query axis
@@ -635,31 +670,42 @@ def _dispatch_buckets(queries, backend: str, strict_alphabet: bool, device,
     elif backend in DEVICE_BACKENDS:
         dev = resolve_device(device)
     results: list = [None] * len(queries)
-    if strict_alphabet and queries:
-        with spans.span("validate"):
-            ok = (validate_batch([q.seq1 for q in queries])
-                  & validate_batch([q.seq2 for q in queries]))
-        if not ok.all():
-            raise ValueError(f"case {int(np.argmin(ok))}: {ALPHABET_ERROR}")
     buckets: dict = {}
+    unplaced: list = []         # Seq2 longer than Seq1: no bucket takes it
     for i, q in enumerate(queries):
+        if len(q.seq2) > len(q.seq1):
+            unplaced.append(i)
+            continue
         l1k, l2p = bucket_shape(len(q.seq1), len(q.seq2))
         key = (tuple(float(w) for w in q.weights), q.is_max, l1k, l2p)
         buckets.setdefault(key, []).append(i)
 
+    # Every string is encoded once, before any bucket runs; in strict mode
+    # the alphabet check reads that pass's flags, so a bad case is refused
+    # before any upload, launch or host-engine bucket.
+    with spans.span("encode", rows=len(queries),
+                    checked=int(strict_alphabet)):
+        plans, bad = _encode_buckets(queries, buckets, backend)
+        if strict_alphabet:
+            bad += [i for i in unplaced
+                    if not (validate(queries[i].seq1)
+                            and validate(queries[i].seq2))][:1]
+    if strict_alphabet:
+        with spans.span("validate"):
+            if bad:
+                raise ValueError(f"case {min(bad)}: {ALPHABET_ERROR}")
+    if unplaced:                # refused after the alphabet check
+        q = queries[unplaced[0]]
+        plan_shapes(len(q.seq1), len(q.seq2))       # raises: Seq2 past Seq1
+
     handles: list = []
     finishers: list = []
-    for (w, is_max, _, l2p), idxs in buckets.items():
-        host = (backend if backend in ("numpy", "native", "xla", "conv")
-                else None)
-        if (backend == "auto" and native.available()
-                and sum(pair_evals(len(queries[i].seq1), len(queries[i].seq2))
-                        for i in idxs) < CONFIG.auto_threshold):
-            host = "native"
+    for w, is_max, idxs, host, operands in plans:
         if host is not None:
-            def fin_host(idxs=idxs, w=w, is_max=is_max, host=host):
-                _host_engine_bucket(queries, idxs, results, w, is_max, host,
-                                    strict_alphabet, dev)
+            def fin_host(codes=operands, idxs=idxs, w=w, is_max=is_max,
+                         host=host):
+                _host_engine_bucket(codes, idxs, results, w, is_max, host,
+                                    dev)
 
             if defer:
                 finishers.append(fin_host)
@@ -667,13 +713,6 @@ def _dispatch_buckets(queries, backend: str, strict_alphabet: bool, device,
                 fin_host()
             continue
         tables = build_tables_cached(np.asarray(w), is_max)
-        with spans.span("encode", rows=len(idxs)):
-            noffs = np.array([len(queries[i].seq1) - len(queries[i].seq2) + 1
-                              for i in idxs], np.int32)
-            _, l1k = plan_bucket(noffs, l2p)
-            c1b = encode_batch_padded([queries[i].seq1 for i in idxs], l1k)
-            c2b = encode_batch_padded([queries[i].seq2 for i in idxs], l2p)
-            n2s = np.array([len(queries[i].seq2) for i in idxs], np.int32)
         # string equality guarantees identical encoded rows
         s1_0 = queries[idxs[0]].seq1
         shared_s1 = (len(idxs) > 1
@@ -687,11 +726,11 @@ def _dispatch_buckets(queries, backend: str, strict_alphabet: bool, device,
                                    batched_search_exact_async)
             on = (device_tables_cached(tables, dev),)
         if not defer:
-            rs = run_sync(c1b, c2b, noffs, n2s, *on, shared_s1=shared_s1)
+            rs = run_sync(*operands, *on, shared_s1=shared_s1)
             for i, r in zip(idxs, rs):
                 results[i] = r
             continue
-        h, fin = run_async(c1b, c2b, noffs, n2s, *on, shared_s1=shared_s1)
+        h, fin = run_async(*operands, *on, shared_s1=shared_s1)
         handles.extend(h)
 
         def fin_device(fin=fin, idxs=idxs):

@@ -44,7 +44,7 @@ import torch
 
 from psa_torch import native
 from psa_torch.config import CONFIG
-from psa_torch.core.alphabet import encode, validate
+from psa_torch.core.alphabet import encode_checked
 from psa_torch.core.oracle import offset_stats_numpy
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (ScoringTables, build_tables_cached,
@@ -150,19 +150,23 @@ class AlignmentSearchEngine:
         return offset_stats(codes1, codes2, self.tables, self.device)
 
     def search_codes(self, codes1: np.ndarray, codes2: np.ndarray) -> SearchResult:
-        with spans.span("encode"):
-            codes1 = np.asarray(codes1, dtype=np.int32)
-            codes2 = np.asarray(codes2, dtype=np.int32)
+        """Search encoded sequences: int32 codes (`encode`) or the kernels'
+        uint8 (`encode_checked`), which the device path uploads as they
+        are."""
+        codes1, codes2 = np.asarray(codes1), np.asarray(codes2)
         if codes2.shape[0] > codes1.shape[0]:
             raise ValueError("seq2 must not be longer than seq1")
         backend = self._resolve_backend(codes1, codes2)
+        if backend == "torch":
+            return self._device_exact(codes1, codes2)
+        # the host engines and the differential ones read int32 codes
+        codes1 = codes1.astype(np.int32, copy=False)
+        codes2 = codes2.astype(np.int32, copy=False)
         if backend == "native":
             # the native engine applies the reference's sequential semantics
             # directly: no separate selection pass
             return native.search_native(codes1, codes2, self.tables,
                                         nthreads=self.nthreads)
-        if backend == "torch":
-            return self._device_exact(codes1, codes2)
         if backend == "hybrid":
             return self._search_hybrid(codes1, codes2)
         counts, maxrank = self.offset_stats(codes1, codes2)
@@ -244,17 +248,20 @@ class AlignmentSearchEngine:
         return host if host_better else dev
 
     def search(self, seq1: str, seq2: str) -> SearchResult:
+        """Each string is encoded once (`encode_checked`); in strict mode
+        the alphabet check reads that pass's flags."""
+        strict = self.strict_alphabet
         with spans.span("search"):
-            if self.strict_alphabet:
+            with spans.span("encode", checked=int(strict)):
+                codes1, ok1 = encode_checked(seq1)
+                codes2, ok2 = encode_checked(seq2)
+            if strict:
                 with spans.span("validate"):
-                    ok = validate(seq1) and validate(seq2)
-                if not ok:
-                    raise ValueError(
-                        "sequences must contain only A-Z and '-' "
-                        "(pass strict_alphabet=False to accept reference-UB "
-                        "inputs)")
-            with spans.span("encode"):
-                codes1, codes2 = encode(seq1), encode(seq2)
+                    if not (ok1 and ok2):
+                        raise ValueError(
+                            "sequences must contain only A-Z and '-' "
+                            "(pass strict_alphabet=False to accept "
+                            "reference-UB inputs)")
             return self.search_codes(codes1, codes2)
 
 

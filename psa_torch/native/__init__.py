@@ -1,8 +1,10 @@
-"""ctypes bindings for the native C++ host engine (psa_native.cpp).
+"""ctypes bindings for the native C++ host engine (psa_native.cpp and
+psa_encode.cpp).
 
-The source is a byte-for-byte copy of the JAX package's, so both packages
-run the same host loops.  The shared library is built with g++ at first use
-into psa_torch/_build/, named by the source's hash and a CPU tag (it is
+psa_native.cpp is a byte-for-byte copy of the JAX package's, so both
+packages run the same host loops; psa_encode.cpp is the port's own (the
+checked encode).  The shared library is built from both with g++ at first
+use into psa_torch/_build/, named by the sources' hash and a CPU tag (it is
 -march=native, so a binary built on another machine could SIGILL); it is
 never committed.  After dlopen a small self-test runs against the port's
 numpy oracle before the handle is trusted.
@@ -31,6 +33,7 @@ from psa_torch.utils import spans
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "psa_native.cpp")
+_SOURCES = (_SRC, os.path.join(_DIR, "psa_encode.cpp"))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
 _lock = threading.Lock()
@@ -45,6 +48,7 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
 def _count(name: str) -> None:
@@ -75,9 +79,12 @@ def _cpu_tag() -> str:
 
 
 def lib_path() -> str:
-    """Where the library for this source and this CPU is (or will be)."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Where the library for these sources and this CPU is (or will be)."""
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(_BUILD_DIR, f"libpsa_host-{digest}-{_cpu_tag()}.so")
 
 
@@ -89,12 +96,12 @@ def _build(path: str) -> None:
     os.close(fd)
     try:
         try:
-            proc = subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
+            proc = subprocess.run(["g++", *_FLAGS, *_SOURCES, "-o", tmp],
                                   capture_output=True, text=True)
         except FileNotFoundError as e:
             raise RuntimeError("the native host engine needs g++") from e
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {_SRC}:\n"
+            raise RuntimeError(f"g++ failed to build the host library:\n"
                                f"{proc.stderr[-2000:]}")
         os.replace(tmp, path)
     finally:
@@ -117,8 +124,13 @@ def _self_test(lib) -> None:
                          np.ascontiguousarray(t.rank.reshape(-1)),
                          0, 4, counts.reshape(-1), maxrank)
     ref_counts, ref_maxrank = offset_stats_numpy(c1, c2, t)
+    codes, bad = np.empty(6, np.uint8), np.empty(2, np.uint8)
+    lib.psa_encode_checked((ctypes.c_char_p * 2)(b"AZ-", b"a?"),
+                           np.array([3, 2], np.int32), 2, codes, 3, bad)
     if not (np.array_equal(counts, ref_counts)
-            and np.array_equal(maxrank, ref_maxrank)):
+            and np.array_equal(maxrank, ref_maxrank)
+            and codes.tolist() == [0, 25, 26, 27, 27, 28]
+            and bad.tolist() == [0, 1]):
         raise RuntimeError("native library self-test failed")
 
 
@@ -169,10 +181,10 @@ def _load(sp):
         ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32, ctypes.c_int32,
         _i8p, _i32p, _f64p, _i8p, _i32p, _i32p, _i32p, _i32p,
     ]
-    lib.psa_encode_padded.restype = None
-    lib.psa_encode_padded.argtypes = [
-        ctypes.c_char_p, _i64p, _i32p, ctypes.c_int32,
-        _i8p, ctypes.c_int32,
+    lib.psa_encode_checked.restype = None
+    lib.psa_encode_checked.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), _i32p, ctypes.c_int32,
+        _u8p, ctypes.c_int32, _u8p,
     ]
     lib.psa_rescore_multi.restype = None
     lib.psa_rescore_multi.argtypes = [
@@ -378,25 +390,22 @@ def parse_chunk_native(buf: bytes, line_off: np.ndarray,
     return status, ntokens, weights, is_max, s1_off, s1_len, s2_off, s2_len
 
 
-def encode_padded_native(buf: bytes, offs: np.ndarray, lens: np.ndarray,
-                         length: int) -> np.ndarray:
-    """(n, length) PAD-padded uint8 code rows from the byte spans
-    buf[offs[i]: offs[i] + lens[i]] in one C pass
-    (core/alphabet.encode_batch_padded's fast path)."""
+def encode_checked_native(raws: list, length: int):
+    """(n, length) PAD-padded uint8 code rows of the byte strings `raws`,
+    and each row's validity (every byte 'A'-'Z' or '-', no OTHER_CODE),
+    from one C pass (core/alphabet.encode_checked's and
+    encode_batch_checked's fast path)."""
     lib = get_lib()
-    n = offs.shape[0]
-    offs = np.ascontiguousarray(offs, np.int64)
-    lens = np.ascontiguousarray(lens, np.int32)
-    if n and not (lens.min() >= 0 and lens.max() <= length and offs.min() >= 0
-                  and (offs + lens).max() <= len(buf)):
-        raise ValueError("span outside the buffer or longer than the row")
+    n = len(raws)
+    lens = np.fromiter(map(len, raws), np.int32, n)
+    if n and lens.max() > length:
+        raise ValueError("a sequence is longer than the row")
     out = np.empty((n, length), np.uint8)
-    _count("encode_padded")
-    # codes are below 128, so the int8 rows the library writes are the
-    # same bytes as the kernels' uint8 input
-    lib.psa_encode_padded(buf, offs, lens, n, out.view(np.int8).reshape(-1),
-                          length)
-    return out
+    bad = np.empty(n, np.uint8)
+    _count("encode_checked")
+    lib.psa_encode_checked((ctypes.c_char_p * n)(*raws), lens, n,
+                           out.reshape(-1), length, bad)
+    return out, bad == 0
 
 
 def offset_stats_native(codes1: np.ndarray, codes2: np.ndarray,

@@ -121,11 +121,11 @@ def broadcast_query(query=None):
     if process_layout()[0] == 1:
         return query
 
-    from psa_torch.core.alphabet import encode
+    from psa_torch.core.alphabet import encode_checked
 
     if is_primary():
-        c1 = torch.from_numpy(encode(query.seq1).astype(np.uint8))
-        c2 = torch.from_numpy(encode(query.seq2).astype(np.uint8))
+        c1 = torch.from_numpy(encode_checked(query.seq1)[0])
+        c2 = torch.from_numpy(encode_checked(query.seq2)[0])
         header = torch.tensor([c1.shape[0], c2.shape[0], int(query.is_max)],
                               dtype=torch.int64)
         w = torch.from_numpy(np.asarray(query.weights, np.float64).copy())

@@ -249,14 +249,18 @@ def main(argv: list[str] | None = None) -> int:
     try:
         with _tracer(args):
             if args.sharded:
-                from psa_torch.core.alphabet import encode, ensure_valid
+                from psa_torch.core.alphabet import (ALPHABET_ERROR,
+                                                     encode_checked)
                 from psa_torch.core.tables import build_tables_cached
                 from psa_torch.parallel.mesh import search_sharded_auto
 
-                ensure_valid(query.seq1, query.seq2, args.lenient)
+                (c1, ok1), (c2, ok2) = (encode_checked(query.seq1),
+                                        encode_checked(query.seq2))
+                if not (args.lenient or (ok1 and ok2)):
+                    raise ValueError(ALPHABET_ERROR)
                 # the mesh shape chosen per query; PSA_MESH_SHAPE overrides
                 res = search_sharded_auto(
-                    encode(query.seq1), encode(query.seq2),
+                    c1, c2,
                     build_tables_cached(np.asarray(query.weights, np.float64),
                                         query.is_max), mesh, kernel=kernel)
             else:

@@ -25,7 +25,7 @@ from psa_tpu.utils import cli as jax_cli
 from psa_tpu.utils import generator as jax_gen
 from psa_tpu.utils.io import Query as JaxQuery
 
-from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE, encode_batch_padded, validate_batch
+from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE, encode_batch_checked, validate_batch
 from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.result import NoMutationFound
 from psa_torch.core.tables import build_tables, device_tables
@@ -231,12 +231,13 @@ def test_keyed_totals_per_row_noff_matches_jax():
 
 def test_encode_and_validate_batch_match_jax():
     seqs = ["ABC", "", "HELLO-WORLD", "abc", "Z" * 40, "A?B"]
-    np.testing.assert_array_equal(encode_batch_padded(seqs, 48),
-                                  jax_encode_batch_padded(seqs, 48))
+    codes, ok = encode_batch_checked(seqs, 48)
+    np.testing.assert_array_equal(codes, jax_encode_batch_padded(seqs, 48))
     np.testing.assert_array_equal(validate_batch(seqs), jax_validate_batch(seqs))
-    assert encode_batch_padded(seqs, 48).dtype == np.uint8
+    np.testing.assert_array_equal(ok, jax_validate_batch(seqs))
+    assert codes.dtype == np.uint8
     with pytest.raises(ValueError):
-        encode_batch_padded(seqs, 39)
+        encode_batch_checked(seqs, 39)
 
 
 def test_microbatch_spans():

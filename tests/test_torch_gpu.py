@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from psa_torch import native
-from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE, encode_batch_padded
+from psa_torch.core.alphabet import OTHER_CODE, PAD_CODE, encode_batch_checked
 from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.tables import build_tables, device_tables
 from psa_torch.models import batch
@@ -271,8 +271,8 @@ def test_rescore_multi_native_on_a_fetched_microbatch(cuda):
     n2s = np.array([len(q.seq2) for q in qs], np.int32)
     l2p = sw.plan_shapes(2048, 512)[2]
     _, l1k = sw.plan_bucket(noffs, l2p)
-    c1b = encode_batch_padded([q.seq1 for q in qs], l1k)
-    c2b = encode_batch_padded([q.seq2 for q in qs], l2p)
+    c1b, _ = encode_batch_checked([q.seq1 for q in qs], l1k)
+    c2b, _ = encode_batch_checked([q.seq2 for q in qs], l2p)
     packed = batch.run_exact_batch(torch.from_numpy(c1b).to(cuda),
                                    torch.from_numpy(c2b).to(cuda),
                                    torch.from_numpy(noffs).to(cuda), dtabs)

@@ -126,10 +126,10 @@ def test_rescore_multi_native_matches_numpy(weights, is_max):
 
 
 def numpy_encode(monkeypatch, seqs, length):
-    """encode_batch_padded's numpy branch."""
+    """encode_batch_checked's numpy branch."""
     with monkeypatch.context() as m:
         m.setattr(native, "_available", False)
-        return alphabet.encode_batch_padded(seqs, length)
+        return alphabet.encode_batch_checked(seqs, length)
 
 
 @pytest.mark.parametrize("lenient", [False, True])
@@ -139,16 +139,18 @@ def test_encode_padded_native_matches_numpy(monkeypatch, lenient):
     if lenient:
         seqs = [s[:5] + "?a*z#1" + s[5:] + "é-" for s in seqs] + ["", "ÿ" * 7]
     length = max(len(s) for s in seqs) + 9
-    before = native.calls["encode_padded"]
-    got = alphabet.encode_batch_padded(seqs, length)
-    assert native.calls["encode_padded"] == before + 1
-    want = numpy_encode(monkeypatch, seqs, length)
+    before = native.calls["encode_checked"]
+    got, ok = alphabet.encode_batch_checked(seqs, length)
+    assert native.calls["encode_checked"] == before + 1
+    want, want_ok = numpy_encode(monkeypatch, seqs, length)
     assert got.dtype == want.dtype == np.uint8 and got.shape == (len(seqs), length)
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ok, want_ok)
+    assert bool(ok.all()) is not lenient
     np.testing.assert_array_equal(got.view(np.int8),
                                   jax_encode_batch_padded(seqs, length))
     with pytest.raises(ValueError):
-        alphabet.encode_batch_padded(seqs, length - 10)
+        alphabet.encode_batch_checked(seqs, length - 10)
 
 
 @pytest.mark.parametrize("weights,is_max", CASES[:6])

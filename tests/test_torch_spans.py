@@ -4,6 +4,7 @@ the off switch, the "psa.<name>" annotations in a profile, and the spans
 the single-query, batch and set-up paths record."""
 
 import collections
+import functools
 import json
 import subprocess
 import sys
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from psa_torch import native
-from psa_torch.core.alphabet import encode, encode_batch_padded
+from psa_torch.core.alphabet import encode, encode_batch_checked
 from psa_torch.core.tables import build_tables, device_tables
 from psa_torch.models import batch
 from psa_torch.models.search import AlignmentSearchEngine
@@ -251,11 +252,12 @@ def test_the_single_query_tree():
     recs = spans.records()
     noff, _, l2p, l1k = plan_shapes(3000, 400)
     assert [(n, p) for n, p, _ in tree(recs)] == [
-        ("validate", "search"), ("encode", "search"), ("encode", "search"),
-        ("encode", "search"), ("upload", "search"), ("launch", "search"),
-        ("fetch_wait", "search"), ("rescore", "host_select"),
-        ("host_select", "search"), ("search", None)]
+        ("encode", "search"), ("validate", "search"), ("upload", "search"),
+        ("launch", "search"), ("fetch_wait", "search"),
+        ("rescore", "host_select"), ("host_select", "search"),
+        ("search", None)]
     by = {s.name: s for s in recs}
+    assert by["encode"].attrs == {"checked": 1}
     assert by["upload"].attrs == {"bytes": l1k + l2p}
     assert by["rescore"].attrs["candidates"] >= 1
     assert len({s.request for s in recs}) == 1
@@ -283,8 +285,8 @@ def test_the_batch_tree():
     l2p = -(-300 // L2_ALIGN) * L2_ALIGN
     _, l1k = plan_bucket(np.full(3, 2500 - 300 + 1), l2p)
     assert tree(recs) == [
+        ("encode", "search_batch", {"rows": 3, "checked": 1}),
         ("validate", "search_batch", {}),
-        ("encode", "search_batch", {"rows": 3}),
         ("upload", "search_batch", {"bytes": 3 * l1k}),
         ("upload", "search_batch", {"bytes": 3 * l2p}),
         ("upload", "search_batch", {"bytes": 3 * 4}),
@@ -297,6 +299,39 @@ def test_the_batch_tree():
     root = recs[-1]
     assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
                for s in recs)
+
+
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("path", ["search", "search_batch"])
+def test_one_checked_encode_a_request(path, strict):
+    """Each string is encoded once a request, in one `encode` span marked
+    `checked` when the strict check reads its flags, then one `validate`
+    span; a lenient request records no `validate`."""
+    qs = queries(2)
+    if path == "search":
+        eng = AlignmentSearchEngine(W, False, strict_alphabet=strict,
+                                    device="cpu")
+        run = functools.partial(eng.search, qs[0].seq1, qs[0].seq2)
+    else:
+        run = functools.partial(batch.search_batch, qs,
+                                strict_alphabet=strict, device="cpu")
+    want = run()
+    spans.clear()
+    before = native.calls["encode_checked"]
+    for _ in range(3):
+        assert run() == want
+    recs = spans.records()
+    roots = [s for s in recs if s.name == path]
+    assert len(roots) == 3
+    for root in roots:
+        mine = [s for s in recs if s.request == root.id]
+        enc = [s for s in mine if s.name == "encode"]
+        val = [s for s in mine if s.name == "validate"]
+        assert len(enc) == 1 and enc[0].attrs["checked"] == int(strict)
+        assert len(val) == int(strict)
+        assert all(enc[0].end_ns <= s.start_ns for s in val)
+    # one native pass a string (search) or a bucket's Seq1s and Seq2s
+    assert native.calls["encode_checked"] == before + 3 * 2
 
 
 def test_the_async_batch_finishes_under_its_root_on_another_thread():
@@ -312,7 +347,7 @@ def test_the_async_batch_finishes_under_its_root_on_another_thread():
     recs = spans.records()
     root = next(s for s in recs if s.name == "search_batch")
     assert [s.name for s in recs if s.end_ns <= root.end_ns] == [
-        "validate", "encode", "upload", "upload", "upload", "launch",
+        "encode", "validate", "upload", "upload", "upload", "launch",
         "search_batch"]
     later = [s for s in recs if s.start_ns >= root.end_ns]
     assert [(n, p) for n, p, _ in tree(later)] == [
@@ -345,8 +380,8 @@ def test_near_fallback_through_a_small_k():
     l2p = 128
     noffs = np.array([len(a) - len(b) + 1 for a, b in rows], np.int32)
     _, l1k = plan_bucket(noffs, l2p)
-    c1b = encode_batch_padded([a for a, _ in rows], l1k)
-    c2b = encode_batch_padded([b for _, b in rows], l2p)
+    c1b, _ = encode_batch_checked([a for a, _ in rows], l1k)
+    c2b, _ = encode_batch_checked([b for _, b in rows], l2p)
     n2s = np.array([len(b) for _, b in rows], np.int32)
     spans.clear()
     want = batch.batched_search_exact(c1b, c2b, noffs, n2s, dtabs)
@@ -406,6 +441,7 @@ def test_build_library_marks_a_build(monkeypatch, tmp_path):
 
 def test_native_load_and_device_tables_spans(monkeypatch):
     assert native.available()
+    spans.clear()                        # the first load, if it was this one
     monkeypatch.setattr(native, "_lib", None)
     native.get_lib()
     native.get_lib()                     # loaded: no second span
@@ -426,7 +462,8 @@ def test_counts_read_from_the_spans():
     batch.search_batch(qs, device="cpu")
     recs = spans.records()
     c = collections.Counter(s.name for s in recs)
-    assert c["encode"] == 2 and c["launch"] == 2 and c["upload"] == 6
+    # both buckets are encoded in one pass before either is dispatched
+    assert c["encode"] == 1 and c["launch"] == 2 and c["upload"] == 6
     assert sum(s.attrs["rows"] for s in recs if s.name == "launch") == 3
     assert sum(s.attrs["candidates"] for s in recs
                if s.name == "rescore") >= 3

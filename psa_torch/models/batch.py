@@ -184,7 +184,8 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
     `sweep` launch per query, a cross-check path), then the top-k epilogue
     and pack of every row (ops/epilogue.epilogue_pack).  Returns the packed
     (n, 6k+2) int32 buffer on the device."""
-    with spans.span("launch", rows=int(c2d.shape[0])):
+    with spans.span("launch", rows=int(c2d.shape[0]),
+                    shared=int(shared_s1)):
         if shared_s1:
             stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
         elif fused:

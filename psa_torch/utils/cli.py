@@ -834,7 +834,12 @@ def _serve_loop(args, reader, device, mesh=None, fin=None) -> int:
     depth = max(1, CONFIG.serve_inflight)
     served = 0
     queued: list = []
+    queued_ns: list = []        # each queued line's arrival, perf_counter_ns
     eof = False
+
+    def enqueue(lines) -> None:
+        queued.extend(lines)
+        queued_ns.extend([time.perf_counter_ns()] * len(lines))
     fin = fin or Finisher()        # fetches complete FIFO off the loop
 
     def flush(payload) -> int:
@@ -873,16 +878,17 @@ def _serve_loop(args, reader, device, mesh=None, fin=None) -> int:
             while (fin.inflight < depth
                    and (len(queued) >= max_b
                         or (queued and not fin.inflight))):
-                take = queued[:max_b]
-                del queued[:max_b]
+                take, arrived = queued[:max_b], queued_ns[:max_b]
+                del queued[:max_b], queued_ns[:max_b]
                 fin.submit(dispatch_query_lines(
                     take, backend=args.backend, lenient=args.lenient,
-                    json_out=args.json, device=device, mesh=mesh))
+                    json_out=args.json, device=device, mesh=mesh,
+                    arrived_ns=arrived))
             if not fin.inflight:
                 if eof:
                     break
                 lines, eof = reader.next_chunk(max_b)  # idle: block
-                queued.extend(lines)
+                enqueue(lines)
                 continue
             # print whatever the finisher thread completed; block outright
             # only when nothing else can progress (pipeline full, or the EOF
@@ -902,7 +908,7 @@ def _serve_loop(args, reader, device, mesh=None, fin=None) -> int:
             lines, got_eof = reader.poll_chunk(max_b - len(queued),
                                                timeout=0.002)
             eof = eof or got_eof
-            queued.extend(lines)
+            enqueue(lines)
         abandon = False
     finally:
         # after a broken pipe or a failure nobody waits for in-flight work

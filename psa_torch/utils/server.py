@@ -28,6 +28,14 @@ Device buckets run on `device` (models/batch.search_batch_async), or
 shard their queries over `mesh` when one is given (`--serve --sharded`).  A
 failure there raises out of the loop: no host engine answers in the
 device's place.
+
+Spans (utils/spans.py): each chunk is one request, rooted at `serve_chunk`
+(its `queries`, `lines` and `queue_us`, the summed wait of its lines from
+the read of each newline to the dispatch) with `parse`, the batch path's
+`search_batch`, and, joined to it on their own threads, `reply` (the
+formatting, `bytes`) and on the TCP loop `route` (`bytes`).  Every
+readable event the TCP loop drains is a `serve_read` root (`bytes`,
+`lines`).
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ import time
 import types
 from collections import deque
 
+from psa_torch.utils import spans
+
 
 class PendingReplies:
     """One in-flight serve chunk: parse errors already resolved, device
@@ -51,10 +61,10 @@ class PendingReplies:
     thread so client I/O keeps draining while the fetch waits."""
 
     __slots__ = ("_outputs", "_queries", "_slots", "_handles", "_finish",
-                 "_t0", "_json")
+                 "_t0", "_json", "span")
 
     def __init__(self, outputs, queries, slots, handles, finish_fn,
-                 t0: float, json_out: bool):
+                 t0: float, json_out: bool, span):
         self._outputs = outputs
         self._queries = queries
         self._slots = slots
@@ -64,61 +74,77 @@ class PendingReplies:
         self._finish = finish_fn
         self._t0 = t0
         self._json = json_out
+        # the chunk's `serve_chunk` span, which the reply and route spans join
+        self.span = span
 
     def finish(self):
         """Complete the chunk -> (outputs, n_queries, seconds); blocks until
         the device results land, then formats the replies in input order."""
         results = self._finish()
         dt = time.perf_counter() - self._t0
-        for j, q, res in zip(self._slots, self._queries, results):
-            if self._json:
-                from psa_torch.utils.cli import _result_json
+        with spans.within(self.span), spans.span("reply") as sp:
+            nbytes = 0
+            for j, q, res in zip(self._slots, self._queries, results):
+                if self._json:
+                    from psa_torch.utils.cli import _result_json
 
-                self._outputs[j] = _result_json(q, res)
-            elif res is None:
-                bad = float("-inf") if q.is_max else float("inf")
-                self._outputs[j] = "-1 %g %s" % (bad, q.seq2)
-            else:
-                self._outputs[j] = "%d %g %s" % (res.offset, res.score,
-                                                 res.mutant(q.seq2))
+                    out = _result_json(q, res)
+                elif res is None:
+                    bad = float("-inf") if q.is_max else float("inf")
+                    out = "-1 %g %s" % (bad, q.seq2)
+                else:
+                    out = "%d %g %s" % (res.offset, res.score,
+                                        res.mutant(q.seq2))
+                self._outputs[j] = out
+                nbytes += len(out)
+            sp.set(bytes=nbytes)
         self._handles = ()
         return self._outputs, len(self._queries), dt
 
 
 def dispatch_query_lines(lines, *, backend: str, lenient: bool,
-                         json_out: bool, device=None,
-                         mesh=None) -> PendingReplies:
+                         json_out: bool, device=None, mesh=None,
+                         arrived_ns=None) -> PendingReplies:
     """Front half of one serve chunk: parse and validate every line,
     dispatch the device buckets (models/batch.search_batch_async) on
     `device` (None = the card), or sharded over `mesh` when one is given
     (`psa-torch --serve --sharded`), and return a PendingReplies whose finish()
     gives the aligned reply lines.  `outputs[j]` is the reply to `lines[j]`
-    (None for a blank line, which gets no reply)."""
+    (None for a blank line, which gets no reply).  `arrived_ns`: each
+    line's arrival on `time.perf_counter_ns()`, for the chunk span's
+    `queue_us`."""
     from psa_torch.models.batch import search_batch_async
     from psa_torch.utils.io import parse_query_lines
 
-    # parse and validate the whole chunk in one pass (the native C scanner
-    # when the library is available, Python otherwise; the same entries)
-    outputs: list = [None] * len(lines)
-    queries, slots = [], []
-    for j, ent in enumerate(parse_query_lines(lines,
-                                              check_alphabet=not lenient)):
-        if ent is None:
-            continue
-        if isinstance(ent, str):
-            outputs[j] = _error_json(ent) if json_out else f"error {ent}"
+    with spans.span("serve_chunk", lines=len(lines)) as chunk:
+        if arrived_ns:
+            now = time.perf_counter_ns()
+            chunk.set(queue_us=sum(now - t for t in arrived_ns) // 1000)
+        # parse and validate the whole chunk in one pass (the native C
+        # scanner when the library is available, Python otherwise; the same
+        # entries)
+        with spans.span("parse", lines=len(lines)):
+            entries = parse_query_lines(lines, check_alphabet=not lenient)
+        outputs: list = [None] * len(lines)
+        queries, slots = [], []
+        for j, ent in enumerate(entries):
+            if ent is None:
+                continue
+            if isinstance(ent, str):
+                outputs[j] = _error_json(ent) if json_out else f"error {ent}"
+            else:
+                queries.append(ent)
+                slots.append(j)
+        chunk.set(queries=len(queries))
+        t0 = time.perf_counter()
+        if queries:
+            handles, finish_fn = search_batch_async(
+                queries, backend=backend, strict_alphabet=False,
+                device=device, mesh=mesh)
         else:
-            queries.append(ent)
-            slots.append(j)
-    t0 = time.perf_counter()
-    if queries:
-        handles, finish_fn = search_batch_async(
-            queries, backend=backend, strict_alphabet=False, device=device,
-            mesh=mesh)
-    else:
-        handles, finish_fn = [], (lambda: [])
+            handles, finish_fn = [], (lambda: [])
     return PendingReplies(outputs, queries, slots, handles, finish_fn, t0,
-                          json_out)
+                          json_out, chunk)
 
 
 def process_query_lines(lines, *, backend: str, lenient: bool,
@@ -221,24 +247,34 @@ class _Conn:
         self.npending = 0           # its lines still waiting in the FIFO
         self.interest = 0           # current selector event mask
 
-    def take_lines(self, out: deque) -> None:
-        """Move complete lines from inbuf into the shared FIFO; a line that
-        spans several recv calls waits in inbuf until its newline."""
+    def take_lines(self, out: deque) -> int:
+        """Move complete lines from inbuf into the shared FIFO, each as
+        (conn, line, its arrival on perf_counter_ns); a line that spans
+        several recv calls waits in inbuf until its newline.  Returns the
+        lines moved."""
+        n, now = 0, time.perf_counter_ns()
         while True:
             nl = self.inbuf.find(b"\n")
             if nl < 0:
                 break
-            out.append((self, self.inbuf[: nl + 1].decode("utf-8", "replace")))
+            out.append((self, self.inbuf[: nl + 1].decode("utf-8", "replace"),
+                        now))
             self.npending += 1
+            n += 1
             del self.inbuf[: nl + 1]
+        return n
 
-    def flush_tail(self, out: deque) -> None:
+    def flush_tail(self, out: deque) -> int:
         """On EOF, a final unterminated line is still a query (the pipe
-        server honours it too: _ServeLineReader's tail rule)."""
-        if self.inbuf:
-            out.append((self, self.inbuf.decode("utf-8", "replace")))
-            self.npending += 1
-            self.inbuf.clear()
+        server honours it too: _ServeLineReader's tail rule).  Returns the
+        lines moved."""
+        if not self.inbuf:
+            return 0
+        out.append((self, self.inbuf.decode("utf-8", "replace"),
+                    time.perf_counter_ns()))
+        self.npending += 1
+        self.inbuf.clear()
+        return 1
 
     def done(self) -> bool:
         return self.read_eof and not self.outbuf and self.npending == 0
@@ -317,7 +353,7 @@ class TCPQueryServer:
 
         old_int = signal.signal(signal.SIGINT, self.request_stop)
         old_term = signal.signal(signal.SIGTERM, self.request_stop)
-        fifo: deque = deque()       # (conn, line) across every connection
+        fifo: deque = deque()       # (conn, line, arrival ns), all conns
         self._fin = fin = self._given_fin or Finisher()
         abandon = True
         try:
@@ -346,7 +382,7 @@ class TCPQueryServer:
                     got = fin.collect(timeout=0)
                     if got is None:
                         break
-                    self._route(sel, fifo, got[0], got[1])
+                    self._route(sel, fifo, *got[0], got[1])
                 # dispatch only a FULL batch, or a partial one once input is
                 # quiescent (no new line arrived this pass): one recv per
                 # connection per pass would otherwise give small odd-sized
@@ -359,7 +395,7 @@ class TCPQueryServer:
             # flush what was answered
             while fin.inflight:
                 got = fin.collect(timeout=None)
-                self._route(sel, fifo, got[0], got[1])
+                self._route(sel, fifo, *got[0], got[1])
             self._drain_outboxes(sel)
             abandon = False
         finally:
@@ -413,10 +449,22 @@ class TCPQueryServer:
 
     def _handle(self, sel, conn: _Conn, mask: int, fifo: deque) -> None:
         if mask & selectors.EVENT_READ and not conn.read_eof:
-            # drain the socket until it would block, or until this
-            # connection alone could fill the dispatch pipeline plus the
-            # next batch (per-client backpressure: the rest stays in the
-            # kernel's buffer until its lines are routed)
+            with spans.span("serve_read") as sp:
+                if self._read(sel, conn, fifo, sp):
+                    return
+        if mask & selectors.EVENT_WRITE:
+            self._write(sel, conn, fifo)
+            return                  # _write already synced interest/closed
+        self._sync_interest(sel, conn, fifo)
+
+    def _read(self, sel, conn: _Conn, fifo: deque, sp) -> bool:
+        """Drain the socket until it would block, or until this connection
+        alone could fill the dispatch pipeline plus the next batch
+        (per-client backpressure: the rest stays in the kernel's buffer
+        until its lines are routed); the bytes and lines read go on `sp`.
+        True when the connection closed."""
+        nbytes = nlines = 0
+        try:
             while conn.npending < self._max_batch * (self._max_inflight + 1):
                 try:
                     data = conn.sock.recv(1 << 16)
@@ -424,21 +472,21 @@ class TCPQueryServer:
                     break
                 except OSError:
                     self._close(sel, conn, fifo)
-                    return
+                    return True
                 if data:
+                    nbytes += len(data)
                     conn.inbuf += data
-                    conn.take_lines(fifo)
+                    nlines += conn.take_lines(fifo)
                 else:
                     conn.read_eof = True
-                    conn.flush_tail(fifo)
+                    nlines += conn.flush_tail(fifo)
                     if conn.done():
                         self._close(sel, conn, fifo)
-                        return
+                        return True
                     break
-        if mask & selectors.EVENT_WRITE:
-            self._write(sel, conn, fifo)
-            return                  # _write already synced interest/closed
-        self._sync_interest(sel, conn, fifo)
+            return False
+        finally:
+            sp.set(bytes=nbytes, lines=nlines)
 
     def _write(self, sel, conn: _Conn, fifo: deque) -> None:
         if conn.outbuf:
@@ -470,7 +518,7 @@ class TCPQueryServer:
         conn.outbuf.clear()
         if conn.npending:
             # drop its queued lines so a dead client can't occupy the batch
-            remaining = [(c, ln) for c, ln in fifo if c is not conn]
+            remaining = [e for e in fifo if e[0] is not conn]
             fifo.clear()
             fifo.extend(remaining)
             conn.npending = 0
@@ -482,28 +530,33 @@ class TCPQueryServer:
         draining sockets."""
         take = min(len(fifo), self._max_batch)
         batch = [fifo.popleft() for _ in range(take)]
-        lines = [ln for _, ln in batch]
         pending = dispatch_query_lines(
-            lines, backend=self._backend, lenient=self._lenient,
-            json_out=self._json, device=self._device,
-            mesh=self._mesh)
-        self._fin.submit(pending, tag=batch)
+            [ln for _, ln, _ in batch], backend=self._backend,
+            lenient=self._lenient, json_out=self._json, device=self._device,
+            mesh=self._mesh, arrived_ns=[t for _, _, t in batch])
+        self._fin.submit(pending, tag=(batch, pending.span))
 
-    def _route(self, sel, fifo: deque, batch, payload) -> None:
+    def _route(self, sel, fifo: deque, batch, chunk, payload) -> None:
         """Route one completed chunk's replies (main thread: this touches
-        the selector and the connections, which the finisher must not)."""
+        the selector and the connections, which the finisher must not),
+        in a `route` span joined to the chunk's `serve_chunk`."""
         outputs, nq, dt = payload
-        nconns = len({id(c) for c, _ in batch})
-        for (conn, _), out in zip(batch, outputs):
-            conn.npending = max(0, conn.npending - 1)
-            if conn.sock.fileno() < 0:      # vanished mid-batch
-                continue
-            if out is not None:
-                conn.outbuf += out.encode("utf-8", "replace") + b"\n"
-            if not conn.outbuf and conn.done():
-                self._close(sel, conn, fifo)
-            else:
-                self._sync_interest(sel, conn, fifo)
+        nconns = len({id(c) for c, _, _ in batch})
+        with spans.within(chunk), spans.span("route") as sp:
+            nbytes = 0
+            for (conn, _, _), out in zip(batch, outputs):
+                conn.npending = max(0, conn.npending - 1)
+                if conn.sock.fileno() < 0:      # vanished mid-batch
+                    continue
+                if out is not None:
+                    data = out.encode("utf-8", "replace") + b"\n"
+                    conn.outbuf += data
+                    nbytes += len(data)
+                if not conn.outbuf and conn.done():
+                    self._close(sel, conn, fifo)
+                else:
+                    self._sync_interest(sel, conn, fifo)
+            sp.set(bytes=nbytes)
         self._served += nq
         if nq:
             self._log(f"[serve] {nq} queries from {nconns} conn(s) in "

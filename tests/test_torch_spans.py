@@ -290,7 +290,7 @@ def test_the_batch_tree():
         ("upload", "search_batch", {"bytes": 3 * l1k}),
         ("upload", "search_batch", {"bytes": 3 * l2p}),
         ("upload", "search_batch", {"bytes": 3 * 4}),
-        ("launch", "search_batch", {"rows": 3}),
+        ("launch", "search_batch", {"rows": 3, "shared": 0}),
         ("fetch_wait", "search_batch", {}),
         ("rescore", "host_select", {"candidates": recs[7].attrs["candidates"]}),
         ("host_select", "search_batch", {}),

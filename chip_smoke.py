@@ -324,7 +324,7 @@ def pad_offsets(torch, c1b, noff_pad: int, l2p: int):
 def batched_kernel_checks(torch, sw, code, dev):
     """Both batched kernels against their plain versions on the card, all 5
     rows of stats5 (tolerance 0: every statistic is an exact integer), at
-    the batch workload's shape and at the work list's edges; the shared
+    the batch workload's shape and at the split's edges; the shared
     kernel also against the per-row one on broadcast rows, and both
     refusing a misaligned row.  Returns ({kernel: max_abs_diff}, the B =
     1024 of 2048 x 512 inputs) or raises."""
@@ -366,9 +366,9 @@ def batched_kernel_checks(torch, sw, code, dev):
         emit({"phase": "batched_plan", "case": case, "shape": shape,
               "per_row": plans[False], "shared": plans[True]})
         p = plans[False]
-        if ((case == "seq2_segments" and not (p["parts"] == 1 and p["segs_per_part"] > 1))
-                or (case == "seq2_split" and p["parts"] == 1)):
-            raise AssertionError(f"{case} did not take the work list it is for")
+        if (case in ("seq2_segments", "seq2_split")
+                and not (p["units"] > p["items"] and p["split_items"] > 0)):
+            raise AssertionError(f"{case} did not take the split it is for")
         check("sweep_batched", case, sw.sweep_batched(d1, d2, code),
               sw.sweep_batched_plain(d1, d2, code), shape)
         if big is None:
@@ -394,6 +394,60 @@ def batched_kernel_checks(torch, sw, code, dev):
         else:
             raise AssertionError(f"{kernel} took a misaligned Seq1 row")
     return worst, big
+
+
+# The batch cells' launch: B = 4 queries of 600,000 x 250,000, each its own
+# Seq1 (`batch.long_rows`) or all on one (`batch.long_shared`).
+CELL = dict(b=4, n1=600_000, n2=250_000)
+
+
+def batched_cell_phase(torch, sw, code, dev):
+    """Both batched kernels at the batch cells' launch: the per-row kernel
+    against B `sweep` launches bit for bit and the shared one against the
+    per-row kernel on broadcast rows; each kernel's plan, its ms (one
+    launch per pair of CUDA events) beside the B `sweep` launches' ms on
+    the same rows, and its table-read bound.  Returns the phase's line or
+    raises."""
+    from psa_torch.utils.kernel_lab import cuda_ms
+
+    b, n1, n2 = CELL["b"], CELL["n1"], CELL["n2"]
+    rng = np.random.default_rng(22)
+    noff, noff_pad, l2p, l1k = sw.plan_shapes(n1, n2)
+    c1b = np.full((b, l1k), 28, np.uint8)
+    c2b = np.full((b, l2p), 28, np.uint8)
+    for q in range(b):
+        c1b[q, :n1] = random_codes(rng, n1, 0.05, 0.05)
+        c2b[q, :n2] = random_codes(rng, n2, 0.05, 0.05)
+    d1 = torch.from_numpy(c1b).to(dev)
+    d2 = torch.from_numpy(c2b).to(dev)
+    rows1 = [d1[q].contiguous() for q in range(b)]
+    rows2 = [d2[q].contiguous() for q in range(b)]
+    wide = d1[:1].expand(b, -1).contiguous()
+    got = sw.sweep_batched(d1, d2, code)
+    if not torch.equal(got, torch.stack([sw.sweep(rows1[q], rows2[q], code)
+                                         for q in range(b)])):
+        raise AssertionError("sweep_batched disagrees with sweep at the batch cells' shape")
+    if not torch.equal(sw.sweep_batched_shared(rows1[0], d2, code),
+                       sw.sweep_batched(wide, d2, code)):
+        raise AssertionError("sweep_batched_shared disagrees with sweep_batched "
+                             "on broadcast rows at the batch cells' shape")
+    sweeps_ms = cuda_ms(torch, lambda: [sw.sweep(rows1[q], rows2[q], code)
+                                        for q in range(b)], runs=10)
+    bound_ms, bound_by = batched_bound([noff] * b, [n2] * b, d1.numel(), d2.numel(),
+                                       noff_pad)
+    line = {"phase": "batched_cell", "b": b, "n1": n1, "n2": n2,
+            "sweeps_ms": list(sweeps_ms), "bound_ms": bound_ms, "bound_by": bound_by,
+            "runs": 10}
+    for name, fn in (("sweep_batched", lambda: sw.sweep_batched(d1, d2, code)),
+                     ("sweep_batched_shared",
+                      lambda: sw.sweep_batched_shared(rows1[0], d2, code))):
+        plan = sw.batched_plan(l2p, noff_pad, b, name != "sweep_batched")
+        ms = cuda_ms(torch, fn, runs=10)
+        line[name] = {"plan": plan, "ms": list(ms), "over_sweeps": ms[0] / sweeps_ms[0],
+                      "of_bound": bound_ms / ms[0],
+                      "balance": plan["units"] / (plan["workers"] * plan["per_worker"])}
+    emit(line)
+    return line
 
 
 # `sweep` against its plain version: the five shapes of earlier runs,
@@ -3012,6 +3066,8 @@ def main() -> int:
                   "plan": sw.batched_plan(l2p_b, pad, b, name != "sweep_batched"),
                   "runs": 2 * 30, "back_to_back": KERNEL_BACK_TO_BACK,
                   "plain_runs": 10})
+
+    batched_cell_phase(torch, sw, code, dev)
 
     dtabs_b = device_tables(build_tables(np.array(BATCH["weights"]),
                                          BATCH["is_max"]), dev)

@@ -111,34 +111,6 @@ struct Steps {
   __device__ bool done() const { return u >= end; }
 };
 
-// Rows 0-4 of this warp's tile, `o` pointing at its first offset of row 0,
-// added (counts) and maxed (maxrank) atomically into an output set to 0 and
-// -1 beforehand.  Each row passes through `row`, kGranule ints of this
-// warp's shared memory, so that lane l adds offsets l, l + 32, ...: one
-// warp's atomics fall on 32 consecutive ints.
-__device__ __forceinline__ void add_stats5(int32_t* o, long stride, int32_t* row,
-                                           const int (&v)[5][kOffsetsPerThread]) {
-  const int lane = threadIdx.x & 31;
-  int4* mine = reinterpret_cast<int4*>(row + lane * kOffsetsPerThread);
-#pragma unroll
-  for (int r = 0; r < 5; ++r) {
-    mine[0] = make_int4(v[r][0], v[r][1], v[r][2], v[r][3]);
-    mine[1] = make_int4(v[r][4], v[r][5], v[r][6], v[r][7]);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < kOffsetsPerThread; ++k) {
-      const int x = row[k * 32 + lane];
-      int32_t* p = o + r * stride + k * 32 + lane;
-      if (r < 4) {
-        if (x) atomicAdd(p, x);
-      } else if (x >= 0) {
-        atomicMax(p, x);
-      }
-    }
-    __syncwarp();                  // every lane has read the row
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const Span sp, const int8_t* __restrict__ code) {
   extern __shared__ __align__(16) uint8_t smem[];

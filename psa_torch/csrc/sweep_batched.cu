@@ -36,20 +36,22 @@
 //     (kGranule = 32 lanes x 8), so a bucket's offsets pad to its longest
 //     query in 256s: 1537 real offsets sweep 1792 padded ones (1.17x the
 //     pairs), not 2048 (1.33x) as whole 1024-offset blocks did.
-//   * A persistent grid over a static work list.  The grid holds as many
-//     blocks as the card has resident slots, and each warp is an
-//     independent worker.  The list holds one item per (tile, query), and
-//     each of the W workers takes one contiguous chunk of it, so no worker
-//     has more than one item above the average.  Items run query-fastest
-//     within a tile, so in the shared kernel a worker's chunk is a (tile,
-//     group of queries) whose one Seq1 window serves the whole group, and
-//     the group size (items / W, rounded up or down) is what makes the items
-//     cover every warp slot.  Warps, not 4-warp blocks on 1024-offset
-//     items, are the workers: one warp tile is one granule, so a bucket of
-//     7 tiles per query (1792 offsets) leaves no warp of a block idle; after
-//     the table is expanded no barrier spans more than one warp, so a warp
-//     that waits on its copy holds up no other; and the list stays
-//     fine-grained enough to balance the SMs.
+//   * An even ("Stream-K") split over a persistent grid, as sweep.cu's.
+//     The grid holds as many blocks as the card has resident slots, and
+//     each warp is an independent worker.  An item is one (tile, query),
+//     items run query-fastest within a tile, and an item is `upi` units of
+//     Seq2 positions, contiguous: the whole of Seq2 where it fits one step
+//     (l2p <= kSegB), else 32 positions.  Worker w of W takes the units
+//     [w U / W, (w + 1) U / W) of the U in the launch, so no worker has
+//     more than one unit above the average, however few and long the items
+//     are.  Where an item is one step the units are the items, and a
+//     worker's range is a (tile, group of queries) whose one Seq1 window
+//     serves the whole group in the shared kernel.  Warps, not 4-warp
+//     blocks on 1024-offset items, are the workers: one warp tile is one
+//     granule, so a bucket of 7 tiles per query (1792 offsets) leaves no
+//     warp of a block idle; after the table is expanded no barrier spans
+//     more than one warp, so a warp that waits on its copy holds up no
+//     other; and the list stays fine-grained enough to balance the SMs.
 //   * Staging that overlaps the sweep.  Lane 0 of a warp copies the next
 //     step's Seq1 window and Seq2 segment into the other stage of a
 //     two-stage ring in shared memory with cp.async.bulk (Hopper's 1-D
@@ -59,20 +61,24 @@
 //     table's 32 rows where they are read, so a stray byte never reads
 //     outside the table.
 //   * A compact write.  A lane's 8 consecutive offsets of a row are 32
-//     contiguous bytes: rows 0-4 go out as two 16-byte stores each, with
-//     row 4 converted to the maxrank in registers, so no pass over the
-//     output follows the kernel and no row of zeros is written.
-//   * Long Seq2.  An item sweeps Seq2 in segments of kSegB positions through
-//     the same ring and is the only writer of its offsets (a later segment
-//     adds into the rows its first one stored): no memset, no atomics.
-//     Only when a bucket has fewer items than warp slots (B = 1, or a few
-//     queries with long Seq2) is Seq2 split over workers, whose
-//     partial results meet in atomics on an output the entry point
-//     initialises.
+//     contiguous bytes: a worker that owns every unit of an item stores
+//     rows 0-4 as two 16-byte stores each, with row 4 converted to the
+//     maxrank in registers, and adds into them on its later steps of the
+//     item (no memset, no atomics); no pass over the output follows the
+//     kernel and no row of zeros is written.
+//   * Long Seq2.  A worker walks its range in steps of at most kSegB
+//     positions within one item, through the same ring.  Where a range
+//     starts or ends inside an item, the workers that share it add their
+//     counts with atomicAdd and their maxranks with atomicMax (the
+//     conversion is monotone), through a row of shared memory so that a
+//     warp's atomics fall on 32 consecutive ints, into an output that the
+//     entry point sets to 0 and -1 first, when some item is shared.
 //   * The pair loop is sweep_core.cuh's sweep_step, shared with sweep.cu:
 //     an expanded 32-bit table entry (a 6-bit class field, the max code in
 //     the top byte), a transposed table, an 8-offset register window, and
 //     two positions per IADD3 and per VIMNMX3.
+
+#include <climits>
 
 #include "sweep_core.cuh"
 
@@ -80,59 +86,72 @@ using namespace psa;
 
 namespace {
 
-// The work list of one launch (see the note at the head of the file).  An
-// item is one (tile, Seq2 part, query); item u is query u % b of (tile,
-// part) u / b, so a run of consecutive items sweeps one Seq1 window of the
-// shared kernel.
+// One launch's work (see the note at the head of the file).  Item i is
+// query i % b of tile i / b, and unit u is unit u % upi of item u / upi, so
+// a run of consecutive items sweeps one Seq1 window of the shared kernel.
 struct Work {
   const uint8_t* c1;        // Seq1 rows (one row when shared)
   const uint8_t* c2;        // Seq2 rows
   int32_t* out;
   long l1k;
   int l2p, noff_pad, b;
-  int ntiles;               // noff_pad / kGranule
-  int nseg;                 // Seq2 segments of kSegB positions
+  int upi;                  // units per item: 1 where l2p <= kSegB, else l2p / kFlush
+  int unit;                 // Seq2 positions per unit: l2p / upi
   int seg_max;              // min(l2p, kSegB): a ring stage's Seq2 bytes
-  int parts, segs_per_part; // Seq2 split over workers (parts > 1: atomics)
-  long items;               // ntiles * parts * b
+  long units;               // noff_pad / kGranule * b * upi
 };
 
 __host__ __device__ constexpr int warp_bytes(int seg_max) {
-  // two mbarriers, two Seq1 windows, two Seq2 segments
-  return 16 + 2 * (kGranule + seg_max) + 2 * seg_max;
+  // two mbarriers, two Seq1 windows, two Seq2 segments, one row of a tile
+  return 16 + 2 * (kGranule + seg_max) + 2 * seg_max + 4 * kGranule;
 }
 
-// A worker's place in its list: the items [begin, end) of one contiguous
-// chunk, and within the current item the Seq2 segment of the current step.
-// Every lane keeps the same cursor.
+// A worker's place in its range of units: the step's item (query q of tile
+// t), its first unit k within the item and its n units, and the units left
+// in the range.  Walked without a division past the start.  Every lane
+// keeps the same cursor.
 struct Cursor {
-  long u, begin, end;
-  int t, q, s, s_begin, s_end;
+  int t, q, k, n, left;
+  bool fresh;       // the worker's first step
+  bool whole;       // the worker owns every unit of the item
 
   __device__ void start(const Work& wk, long worker, long workers) {
-    begin = worker * wk.items / workers;
-    end = (worker + 1) * wk.items / workers;
-    set(wk, begin);
+    const long begin = worker * wk.units / workers;
+    const long item = begin / wk.upi;
+    t = static_cast<int>(item / wk.b);
+    q = static_cast<int>(item % wk.b);
+    k = static_cast<int>(begin - item * wk.upi);
+    left = static_cast<int>((worker + 1) * wk.units / workers - begin);
+    fresh = true;
+    whole = k == 0 && left >= wk.upi;
+    size(wk);
   }
-  __device__ void set(const Work& wk, long it) {
-    u = it;
-    if (u >= end) return;
-    q = static_cast<int>(u % wk.b);
-    const long rest = u / wk.b;
-    t = static_cast<int>(rest / wk.parts);
-    s_begin = s = static_cast<int>(rest % wk.parts) * wk.segs_per_part;
-    s_end = min(wk.nseg, s_begin + wk.segs_per_part);
+  __device__ void size(const Work& wk) {
+    n = min(min(left, wk.upi - k), kSegB / wk.unit);
   }
   __device__ void next(const Work& wk) {
-    if (++s < s_end) return;
-    set(wk, u + 1);
+    left -= n;
+    k += n;
+    fresh = false;
+    if (k == wk.upi) {
+      k = 0;
+      if (++q == wk.b) {
+        q = 0;
+        ++t;
+      }
+      whole = left >= wk.upi;
+    }
+    size(wk);
   }
-  __device__ bool done() const { return u >= end; }
+  __device__ bool done() const { return left <= 0; }
+  __device__ int p0(const Work& wk) const { return k * wk.unit; }
+  __device__ int seg(const Work& wk) const { return n * wk.unit; }
+  __device__ bool first() const { return fresh || k == 0; }   // in the item
   // The step needs its own Seq1 window unless it sweeps the window of the
-  // step before it: the next query of a shared-Seq1 run in one segment.
+  // step before it: the next query of a shared-Seq1 run of one-step items.
   template <bool kShared>
-  __device__ bool new_window() const {
-    return !kShared || s_end - s_begin > 1 || u == begin || q == 0;
+  __device__ bool new_window(const Work& wk) const {
+    return !kShared || wk.upi > 1 || fresh || q == 0;
   }
 };
 
@@ -143,8 +162,8 @@ template <bool kShared>
 __device__ __forceinline__ void issue(const Work& wk, const Cursor& c,
                                       uint8_t* win, uint8_t* s2,
                                       uint64_t* bar) {
-  const int p0 = c.s * kSegB;
-  const uint32_t seg = min(kSegB, wk.l2p - p0);
+  const int p0 = c.p0(wk);
+  const uint32_t seg = c.seg(wk);
   fence_proxy_async();
   mbar_expect(bar, seg + (win ? kGranule + seg : 0));
   bulk_copy(s2, wk.c2 + static_cast<long>(c.q) * wk.l2p + p0, seg, bar);
@@ -152,33 +171,6 @@ __device__ __forceinline__ void issue(const Work& wk, const Cursor& c,
     const uint8_t* row = kShared ? wk.c1 : wk.c1 + static_cast<long>(c.q) * wk.l1k;
     bulk_copy(win, row + static_cast<long>(c.t) * kGranule + p0, kGranule + seg, bar);
   }
-}
-
-// Rows 0-4 of this lane's offsets of query q, tile t after a step:
-// stored by the first step of an item, added to (counts) and maxed into
-// (maxrank) by its later steps, and, when Seq2 is split over workers,
-// added and maxed atomically into an output initialised to 0 and -1.
-__device__ __forceinline__ void write_stats(const Work& wk, int q, int t,
-                                            bool first,
-                                            const uint32_t (&mx)[kOffsetsPerThread],
-                                            const uint32_t (&c02)[kOffsetsPerThread],
-                                            const uint32_t (&c13)[kOffsetsPerThread]) {
-  int32_t* o = wk.out + static_cast<long>(q) * 5 * wk.noff_pad + t * kGranule
-               + (threadIdx.x & 31) * kOffsetsPerThread;
-  int v[5][kOffsetsPerThread];
-  step_stats5(mx, c02, c13, v);
-  if (wk.parts > 1) {
-#pragma unroll
-    for (int j = 0; j < kOffsetsPerThread; ++j) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (v[r][j]) atomicAdd(o + static_cast<long>(r) * wk.noff_pad + j, v[r][j]);
-      }
-      if (v[4][j] >= 0) atomicMax(o + 4L * wk.noff_pad + j, v[4][j]);
-    }
-    return;
-  }
-  store_stats5(o, wk.noff_pad, first, v);
 }
 
 template <bool kShared>
@@ -193,6 +185,7 @@ sweep_batched_kernel(const Work wk, const int8_t* __restrict__ code) {
   uint64_t* bar = reinterpret_cast<uint64_t*>(mine);   // one per ring stage
   uint8_t* win = mine + 16;                            // [2][win_bytes]
   uint8_t* s2 = win + 2 * win_bytes;                   // [2][seg_max]
+  int32_t* row = reinterpret_cast<int32_t*>(s2 + 2 * wk.seg_max);  // [kGranule]
 
   expand_table(tab, code);
   if (lane == 0) {
@@ -213,7 +206,7 @@ sweep_batched_kernel(const Work wk, const int8_t* __restrict__ code) {
   // finished reading.
   int windows_issued = 0, windows_swept = 0;
   auto produce = [&](int stage) {
-    const bool nw = nxt.new_window<kShared>();
+    const bool nw = nxt.new_window<kShared>(wk);
     if (lane == 0) {
       issue<kShared>(wk, nxt, nw ? win + (windows_issued & 1) * win_bytes : nullptr,
                      s2 + stage * wk.seg_max, bar + stage);
@@ -225,31 +218,39 @@ sweep_batched_kernel(const Work wk, const int8_t* __restrict__ code) {
 
   const uint32_t tab_s = smem_u32(tab);
   uint32_t mx[kOffsetsPerThread], c02[kOffsetsPerThread], c13[kOffsetsPerThread];
-  for (long n = 0; !cur.done(); ++n) {
-    const int stage = static_cast<int>(n & 1);
+  int v[5][kOffsetsPerThread];
+  for (int n = 0; !cur.done(); ++n) {
+    const int stage = n & 1;
     if (!nxt.done()) produce(stage ^ 1);
-    windows_swept += cur.new_window<kShared>();
+    windows_swept += cur.new_window<kShared>(wk);
     const uint8_t* w = win + ((windows_swept - 1) & 1) * win_bytes;
     mbar_wait(bar + stage, static_cast<uint32_t>(n >> 1) & 1);
-    sweep_step(tab_s, w, s2 + stage * wk.seg_max, min(kSegB, wk.l2p - cur.s * kSegB),
-               mx, c02, c13);
-    write_stats(wk, cur.q, cur.t, cur.s == cur.s_begin, mx, c02, c13);
+    sweep_step(tab_s, w, s2 + stage * wk.seg_max, cur.seg(wk), mx, c02, c13);
+    step_stats5(mx, c02, c13, v);
+    int32_t* o = wk.out + static_cast<long>(cur.q) * 5 * wk.noff_pad + cur.t * kGranule;
+    if (cur.whole) {
+      store_stats5(o + lane * kOffsetsPerThread, wk.noff_pad, cur.first(), v);
+    } else {
+      add_stats5(o, wk.noff_pad, row, v);
+    }
     __syncwarp();                  // every lane is done with this stage
     cur.next(wk);
   }
 }
 
-// The work list and grid of a launch: the grid and the Seq2 split follow
-// the card's resident warp slots.
+// The even split of a launch of these shapes: the work, the grid (no more
+// warps than units), the dynamic shared bytes per block and the resident
+// blocks per SM.
 template <bool kShared>
 cudaError_t plan_work(int l2p, int noff_pad, int b, Work* wk, int* blocks,
                       size_t* smem, int* per_sm) {
   wk->l2p = l2p;
   wk->noff_pad = noff_pad;
   wk->b = b;
-  wk->ntiles = noff_pad / kGranule;
-  wk->nseg = (l2p + kSegB - 1) / kSegB;
+  wk->upi = l2p <= kSegB ? 1 : l2p / kFlush;
+  wk->unit = l2p / wk->upi;
   wk->seg_max = min(l2p, kSegB);
+  wk->units = static_cast<long>(noff_pad / kGranule) * b * wk->upi;
   *smem = kTableBytes + kWarps * static_cast<size_t>(warp_bytes(wk->seg_max));
   int dev = 0, sms = 0;
   cudaError_t err;
@@ -260,19 +261,26 @@ cudaError_t plan_work(int l2p, int noff_pad, int b, Work* wk, int* blocks,
     return err;
   }
   if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long slots = static_cast<long>(sms) * *per_sm * kWarps;
-  const long tiles = static_cast<long>(b) * wk->ntiles;
-  wk->parts = 1;
-  wk->segs_per_part = wk->nseg;
-  if (tiles < slots && wk->nseg > 1) {
-    const long want = min(static_cast<long>(wk->nseg), (slots + tiles - 1) / tiles);
-    wk->segs_per_part = static_cast<int>((wk->nseg + want - 1) / want);
-    wk->parts = (wk->nseg + wk->segs_per_part - 1) / wk->segs_per_part;
-  }
-  wk->items = tiles * wk->parts;
   *blocks = static_cast<int>(min(static_cast<long>(sms) * *per_sm,
-                                 (wk->items + kWarps - 1) / kWarps));
+                                 (wk->units + kWarps - 1) / kWarps));
+  const long workers = static_cast<long>(*blocks) * kWarps;
+  // a worker counts its units in an int
+  if ((wk->units + workers - 1) / workers > INT_MAX) return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// Items shared between workers: those with a worker boundary strictly
+// inside them.  With `any`, stops at the first.
+long split_items(const Work& wk, long workers, bool any) {
+  long count = 0, last = -1;
+  for (long w = 1; w < workers; ++w) {
+    const long b = w * wk.units / workers;
+    if (b % wk.upi == 0 || b / wk.upi == last) continue;
+    last = b / wk.upi;
+    ++count;
+    if (any) break;
+  }
+  return count;
 }
 
 template <bool kShared>
@@ -296,7 +304,7 @@ int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
   wk.out = static_cast<int32_t*>(out);
   wk.l1k = l1k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wk.parts > 1) {
+  if (split_items(wk, static_cast<long>(blocks) * kWarps, true)) {
     // counts start at 0, maxranks at -1 (all bytes 0xff)
     const size_t row = sizeof(int32_t) * static_cast<size_t>(noff_pad);
     if ((err = cudaMemsetAsync(out, 0, 5 * row * b, s)) != cudaSuccess ||
@@ -329,10 +337,10 @@ int psa_sweep_batched_shared_launch(const void* c1, int l1k, const void* c2,
   return launch<true>(c1, l1k, c2, l2p, code, out, noff_pad, b, stream);
 }
 
-// The plan a launch of these shapes on the current device takes:
-// plan[0..7] = resident blocks per SM, blocks, warp workers, items, the
-// longest chunk of items a worker takes, Seq2 parts, segments per part,
-// dynamic shared bytes per block.
+// The split a launch of these shapes takes on the current device:
+// plan[0..7] = resident blocks per SM, blocks, warp workers, items, units,
+// the most units one worker takes, items shared between workers, dynamic
+// shared bytes per block.
 int psa_sweep_batched_plan(int l2p, int noff_pad, int b, int shared,
                            long long* plan) {
   if (b <= 0 || noff_pad <= 0 || noff_pad % kGranule != 0 || l2p <= 0 ||
@@ -346,10 +354,10 @@ int psa_sweep_batched_plan(int l2p, int noff_pad, int b, int shared,
       shared ? plan_work<true>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm)
              : plan_work<false>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long workers = static_cast<long long>(blocks) * kWarps;
-  const long long v[8] = {per_sm, blocks, workers, wk.items,
-                          (wk.items + workers - 1) / workers, wk.parts,
-                          wk.segs_per_part, static_cast<long long>(smem)};
+  const long workers = static_cast<long>(blocks) * kWarps;
+  const long long v[8] = {per_sm, blocks, workers, wk.units / wk.upi, wk.units,
+                          (wk.units + workers - 1) / workers,
+                          split_items(wk, workers, false), static_cast<long long>(smem)};
   for (int i = 0; i < 8; ++i) plan[i] = v[i];
   return 0;
 }

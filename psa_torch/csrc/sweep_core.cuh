@@ -1,7 +1,8 @@
 // What the offset sweeps share (sweep.cu, one query; sweep_batched.cu, B
 // queries): the expanded code table, the warp tile, the cp.async.bulk /
-// mbarrier staging helpers, the pair loop of one step, and the write of a
-// warp tile's stats5.
+// mbarrier staging helpers, the pair loop of one step, and the writes of a
+// warp tile's stats5 (stored by its one worker, or added atomically where
+// workers share it).
 //
 // Contract of a step: for the offsets o of a warp tile and the positions i of
 // the staged Seq2 segment, with v = code[c1[o + i] & 31][c2[i] & 31], rows
@@ -215,6 +216,34 @@ __device__ __forceinline__ void store_stats5(int32_t* o, long stride, bool first
     }
     p[0] = a;
     p[1] = b;
+  }
+}
+
+// Rows 0-4 of this warp's tile, `o` pointing at its first offset of row 0,
+// added (counts) and maxed (maxrank) atomically into an output set to 0 and
+// -1 beforehand.  Each row passes through `row`, kGranule ints of this
+// warp's shared memory, so that lane l adds offsets l, l + 32, ...: one
+// warp's atomics fall on 32 consecutive ints.
+__device__ __forceinline__ void add_stats5(int32_t* o, long stride, int32_t* row,
+                                           const int (&v)[5][kOffsetsPerThread]) {
+  const int lane = threadIdx.x & 31;
+  int4* mine = reinterpret_cast<int4*>(row + lane * kOffsetsPerThread);
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+    mine[0] = make_int4(v[r][0], v[r][1], v[r][2], v[r][3]);
+    mine[1] = make_int4(v[r][4], v[r][5], v[r][6], v[r][7]);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kOffsetsPerThread; ++k) {
+      const int x = row[k * 32 + lane];
+      int32_t* p = o + r * stride + k * 32 + lane;
+      if (r < 4) {
+        if (x) atomicAdd(p, x);
+      } else if (x >= 0) {
+        atomicMax(p, x);
+      }
+    }
+    __syncwarp();                  // every lane has read the row
   }
 }
 

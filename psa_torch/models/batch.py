@@ -42,6 +42,7 @@ crosses devices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -64,9 +65,10 @@ from psa_torch.ops.epilogue import (TOPK, epilogue_pack,
                                     unpack_epilogue_outputs)
 from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
                                   select_best, totals_from_stats)
-from psa_torch.ops.sweep import (bucket_shape, offset_stats, plan_bucket,
-                                 plan_shapes, sweep, sweep_batched,
-                                 sweep_batched_shared, upload_codes)
+from psa_torch.ops.sweep import (batched_plan, bucket_shape, offset_stats,
+                                 plan_bucket, plan_shapes, sweep,
+                                 sweep_batched, sweep_batched_shared,
+                                 upload_codes)
 from psa_torch.utils import spans
 
 __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
@@ -176,6 +178,18 @@ def upload_rows(a: np.ndarray, device: torch.device):
         return host, host.to(device, non_blocking=True)
 
 
+@functools.lru_cache(maxsize=1024)
+def balance_pm(l2p: int, noff_pad: int, b: int, shared: bool,
+               device: torch.device) -> int:
+    """1000 x the mean warp worker's pairs over the longest worker's in a
+    batched launch of these shapes on `device`, from its plan
+    (`ops/sweep.batched_plan`: every unit holds the same pairs), cached per
+    shape and device."""
+    with torch.cuda.device(device):
+        p = batched_plan(l2p, noff_pad, b, shared)
+    return round(1000 * p["units"] / (p["workers"] * p["per_worker"]))
+
+
 def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
                     noffd: torch.Tensor, dtabs: DeviceTables, k: int = TOPK,
                     shared_s1: bool = False, fused: bool = True):
@@ -183,17 +197,22 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
     shared-Seq1 kernel when c1d is one (l1k,) row; with fused=False one
     `sweep` launch per query, a cross-check path), then the top-k epilogue
     and pack of every row (ops/epilogue.epilogue_pack).  Returns the packed
-    (n, 6k+2) int32 buffer on the device."""
-    with spans.span("launch", rows=int(c2d.shape[0]),
-                    shared=int(shared_s1)):
+    (n, 6k+2) int32 buffer on the device.  While the span recorder is on, a
+    batched launch on the card sets its `launch` span's `balance_pm`."""
+    b, l2p = c2d.shape
+    with spans.span("launch", rows=int(b), shared=int(shared_s1)) as sp:
+        if ((shared_s1 or fused) and c2d.device.type == "cuda"
+                and isinstance(sp, spans.Span)):
+            sp.set(balance_pm=balance_pm(l2p, c1d.shape[-1] - l2p, b, shared_s1,
+                                         c2d.device))
         if shared_s1:
             stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
         elif fused:
             stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code)
         else:
             stats5 = torch.stack([sweep(c1d[r], c2d[r], dtabs.code)
-                                  for r in range(c2d.shape[0])])
-        return epilogue_pack(stats5, dtabs, noffd, c2d.shape[1], k)
+                                  for r in range(b)])
+        return epilogue_pack(stats5, dtabs, noffd, l2p, k)
 
 
 @dataclasses.dataclass

@@ -17,7 +17,8 @@ split of the (tile, 32-position) units over persistent warp workers, see
 `sweep_plan`) for CUDA tensors and runs `sweep_plain` — the blocked gather
 of the JAX package's engine_xla, in torch — for CPU tensors.
 `sweep_batched` and `sweep_batched_shared` do the same for B queries at once
-and return stats5 (B, 5, noff_pad) (csrc/sweep_batched.cu; plain versions
+and return stats5 (B, 5, noff_pad) (csrc/sweep_batched.cu: the same split
+over (tile, query) items, see `batched_split_plan`; plain versions
 `sweep_batched_plain` and `sweep_batched_shared_plain`).  Both kernels'
 offsets pad to whole warp tiles of TILE_O (`plan_shapes`, `plan_bucket`).
 The kernel lab's tensor-core sweeps (csrc/sweep_mma.cu, csrc/sweep_mma_v3.cu)
@@ -33,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections.abc import Sequence
 from pathlib import Path
 
 import numpy as np
@@ -280,6 +282,50 @@ def _check_aligned(**named):
                              f"kernels (data_ptr % 16 = {t.data_ptr() % 16})")
 
 
+class _Walks(Sequence):
+    """Per worker of an even split, its steps, each worker's list made when
+    it is read, so that a split of millions of steps is never held whole.
+    Worker w of W takes the units [w U // W, (w + 1) U // W) of U = items x
+    upi units of `unit` positions of Seq2, the units of an item contiguous,
+    and walks them in steps of at most SEG positions within one item; a
+    step is (item, first position, positions, atomic: the worker does not
+    own every unit of the item, first: its first step in the item)."""
+
+    def __init__(self, items: int, upi: int, unit: int, workers: int):
+        self.upi, self.unit, self.workers = upi, unit, workers
+        self.units = items * upi
+
+    def __len__(self) -> int:
+        return self.workers
+
+    def __getitem__(self, w: int) -> list:
+        if not 0 <= w < self.workers:
+            raise IndexError(w)
+        upi, unit = self.upi, self.unit
+        begin = w * self.units // self.workers
+        end = (w + 1) * self.units // self.workers
+        mine, u = [], begin
+        while u < end:
+            i0 = u - u % upi
+            stop = min(end, i0 + upi, u + max(1, SEG // unit))
+            mine.append((u // upi, (u - i0) * unit, (stop - u) * unit,
+                         not (begin <= i0 and i0 + upi <= end), u in (begin, i0)))
+            u = stop
+        return mine
+
+
+def _even_split(items: int, upi: int, unit: int, workers: int,
+                split_key: str) -> dict:
+    """units, per_worker (the most units one worker takes), `split_key`
+    (items with a worker boundary strictly inside them, whose rows their
+    workers add atomically) and steps (`_Walks`) of an even split."""
+    units = items * upi
+    split = {b // upi for b in (w * units // workers for w in range(1, workers))
+             if b % upi}
+    return {"units": units, "per_worker": -(-units // workers),
+            split_key: len(split), "steps": _Walks(items, upi, unit, workers)}
+
+
 def sweep_plan(noff_pad: int, l2p: int, workers: int) -> dict:
     """The even split of one `sweep` over `workers` warp workers, as
     csrc/sweep.cu takes it.  The work is U = noff_pad / TILE_O * l2p /
@@ -287,28 +333,31 @@ def sweep_plan(noff_pad: int, l2p: int, workers: int) -> dict:
     worker w takes the units [w U // W, (w + 1) U // W) and walks them in
     steps of at most SEG positions within one tile.  Returns units,
     per_worker (the most units one worker takes), split_tiles (tiles shared
-    between workers, whose rows they add atomically) and steps: per worker,
-    its steps as (tile, first position, positions, atomic, first step of
-    the worker in the tile)."""
-    upt = l2p // L2_ALIGN
-    units = noff_pad // TILE_O * upt
-    steps, split, most = [], set(), 0
-    for w in range(workers):
-        begin, end = w * units // workers, (w + 1) * units // workers
-        most = max(most, end - begin)
-        mine, u = [], begin
-        while u < end:
-            t0 = u - u % upt
-            stop = min(end, t0 + upt, u + SEG // L2_ALIGN)
-            atomic = not (begin <= t0 and t0 + upt <= end)
-            mine.append((u // upt, (u - t0) * L2_ALIGN, (stop - u) * L2_ALIGN,
-                         atomic, u in (begin, t0)))
-            if atomic:
-                split.add(u // upt)
-            u = stop
-        steps.append(mine)
-    return {"units": units, "per_worker": most, "split_tiles": len(split),
-            "steps": steps}
+    between workers, whose rows they add atomically) and steps: per worker
+    (made as it is read), its steps as (tile, first position, positions,
+    atomic, first step of the worker in the tile)."""
+    return _even_split(noff_pad // TILE_O, l2p // L2_ALIGN, L2_ALIGN, workers,
+                       "split_tiles")
+
+
+def batched_split_plan(b: int, noff_pad: int, l2p: int, workers: int) -> dict:
+    """The even split of one batched launch (`sweep_batched`,
+    `sweep_batched_shared`) over `workers` warp workers, as
+    csrc/sweep_batched.cu takes it.  An item is one (warp tile, query),
+    item i being query i % b of tile i // b; an item is one unit where
+    Seq2 fits one step (l2p <= SEG: the items are the units, and a range
+    of them sweeps one Seq1 window in the shared kernel), else l2p /
+    L2_ALIGN units of L2_ALIGN positions.  Worker w takes the units [w U //
+    W, (w + 1) U // W) and walks them in steps of at most SEG positions
+    within one item.  Returns items, units, per_worker (the most units one
+    worker takes), split_items (items shared between workers, whose rows
+    they add atomically into an output set to 0 and -1 first) and steps:
+    per worker (made as it is read), its steps as (item, first position,
+    positions, atomic, first step of the worker in the item)."""
+    upi = 1 if l2p <= SEG else l2p // L2_ALIGN
+    items = noff_pad // TILE_O * b
+    return dict(_even_split(items, upi, l2p // upi, workers, "split_items"),
+                items=items)
 
 
 def sweep_launch_plan(l2p: int, noff_pad: int) -> dict:
@@ -328,19 +377,21 @@ def sweep_launch_plan(l2p: int, noff_pad: int) -> dict:
 
 
 def batched_plan(l2p: int, noff_pad: int, b: int, shared: bool) -> dict:
-    """The work list a batched launch of these shapes takes on the current
-    CUDA device (csrc/sweep_batched.cu plan_work): resident blocks per SM,
-    blocks, warp workers, items ((tile, Seq2 part, query) steps), the
-    longest chunk of items one worker takes, Seq2 parts (> 1: split over
-    workers, with atomics), segments per part, shared bytes per block."""
+    """The split a batched launch of these shapes takes on the current CUDA
+    device (csrc/sweep_batched.cu psa_sweep_batched_plan): resident blocks
+    per SM, blocks, warp workers, items ((tile, query) pairs), units, the
+    most units one worker takes, items shared between workers (> 0: the
+    output is set first and their rows added atomically), shared bytes per
+    block.  `batched_split_plan` with its workers gives the same items,
+    units, per_worker and split_items."""
     lib = build_library()
     plan = (ctypes.c_longlong * 8)()
     err = lib.psa_sweep_batched_plan(l2p, noff_pad, b, int(shared), plan)
     if err != 0:
         raise RuntimeError("psa_sweep_batched_plan failed: "
                            + lib.psa_error_string(err).decode())
-    return dict(zip(("blocks_per_sm", "blocks", "workers", "items",
-                     "per_worker", "parts", "segs_per_part", "smem_bytes"), plan))
+    return dict(zip(("blocks_per_sm", "blocks", "workers", "items", "units",
+                     "per_worker", "split_items", "smem_bytes"), plan))
 
 
 def launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,

@@ -349,10 +349,11 @@ def warp_slots(cuda, l2p):
                                   "b_not_multiple_of_slots", "seq2_segments",
                                   "seq2_split"])
 def test_batched_kernels_at_edge_shapes(cuda, case):
-    """The work list's edges: one real offset, offsets filling whole warp
-    tiles, one query, a B that fills no whole wave, Seq2 longer than a
-    segment swept by one worker, and a bucket with fewer items than warp
-    slots, whose Seq2 is split over workers (atomics)."""
+    """The split's edges: one real offset, offsets filling whole warp
+    tiles, one query, a B that fills no whole wave (each item one unit and
+    one step), Seq2 longer than a step with more items than warp slots, and
+    a bucket with fewer items than warp slots; the last two split Seq2 into
+    32-position units, and items shared between workers take atomics."""
     rng = np.random.default_rng(len(case))
     b, n1, n2 = {"noff_1": (5, 300, 300), "noff_multiple_of_tile": (7, 967, 200),
                  "b_1": (1, 3000, 500), "b_not_multiple_of_slots": (1111, 1000, 300),
@@ -360,9 +361,51 @@ def test_batched_kernels_at_edge_shapes(cuda, case):
                  "seq2_split": (2, 5000, 4000)}[case]
     c1b, c2b = batch_rows(rng, b, n1, n2, False, False)
     plan = sw.batched_plan(c2b.shape[1], c1b.shape[1] - c2b.shape[1], b, False)
-    assert (plan["segs_per_part"] > 1) == (case == "seq2_segments")
-    assert (plan["parts"] > 1) == (case == "seq2_split")
+    long_seq2 = case in ("seq2_segments", "seq2_split")
+    assert (plan["units"] > plan["items"]) == long_seq2
+    assert (plan["split_items"] > 0) == long_seq2
+    assert plan["per_worker"] == -(-plan["units"] // plan["workers"])
     check_batched_kernels(cuda, c1b, c2b)
+
+
+# (b, n1, n2) at the benchmark's batch cells (600,000 x 250,000, B = 1-8)
+# and the batch workload's 1024 x 2048 x 512
+CELL_PLANS = [(b, 600_000, 250_000) for b in range(1, 9)] + [(1024, 2048, 512)]
+
+
+@pytest.mark.parametrize("b,n1,n2", CELL_PLANS)
+def test_batched_plan_is_the_cpu_model(cuda, b, n1, n2):
+    """The card's split of both batched kernels equals
+    `batched_split_plan` with the card's workers; where Seq2 spans more than
+    one step no worker sweeps more than one unit above the mean."""
+    _, noff_pad, l2p, _ = sw.plan_shapes(n1, n2)
+    for shared in (False, True):
+        card = sw.batched_plan(l2p, noff_pad, b, shared)
+        model = sw.batched_split_plan(b, noff_pad, l2p, card["workers"])
+        keys = ("items", "units", "per_worker", "split_items")
+        assert {k: card[k] for k in keys} == {k: model[k] for k in keys}
+        if l2p > sw.SEG:
+            assert card["per_worker"] - card["units"] / card["workers"] < 1
+
+
+def test_batched_kernels_at_the_cell_shape(cuda):
+    """At B = 4 of 600,000 x 250,000 (the batch cell's launch) the per-row
+    kernel equals four `sweep` launches bit for bit, and the shared kernel
+    equals the per-row one on broadcast rows."""
+    rng = np.random.default_rng(4)
+    c1b, c2b = batch_rows(rng, 4, 600_000, 250_000, True, False)
+    code = torch.from_numpy(build_tables(np.array([1.0, 3.0, 4.0, 2.0]),
+                                         False).code).to(cuda)
+    d1 = torch.from_numpy(c1b).to(cuda)
+    d2 = torch.from_numpy(c2b).to(cuda)
+    got = sw.sweep_batched(d1, d2, code)
+    want = torch.stack([sw.sweep(d1[q].contiguous(), d2[q].contiguous(), code)
+                        for q in range(4)])
+    shared = sw.sweep_batched_shared(d1[0].contiguous(), d2, code)
+    broadcast = sw.sweep_batched(d1[:1].expand(4, -1).contiguous(), d2, code)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(shared, broadcast)
 
 
 def test_batched_kernels_refuse_misaligned_rows(cuda):

@@ -2685,7 +2685,7 @@ def main() -> int:
     if single_launches["epilogue_cuda_launches"] != single_launches["epilogue"]:
         return fail(f"{single_launches['epilogue_cuda_launches']} CUDA launches for "
                     f"{single_launches['epilogue']} epilogue calls")
-    if single_native.get("rescore_batch", 0) < 1 + len(queries):
+    if single_native.get("rescore_multi", 0) < 1 + len(queries):
         return fail("host selection of the single-query path did not run native")
 
     # 4a. the north-star query through every backend setting, each with the
@@ -2711,7 +2711,7 @@ def main() -> int:
                 or launches["epilogue"] != launches["sweep"]:
             return fail(f"north star through {tag} launched sweep "
                         f"{launches['sweep']} times, the epilogue {launches['epilogue']}")
-        if on_card and calls.get("rescore_batch", 0) != 1:
+        if on_card and calls.get("rescore_multi", 0) != 1:
             return fail(f"host selection of {tag} did not run native")
         if not on_card and calls.get("search", 0) != 1:
             return fail(f"{tag} did not run the native engine")

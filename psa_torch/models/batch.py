@@ -7,7 +7,8 @@ stage).  The device ranks offsets by f32 keyed totals but returns the top-k
 candidates WITH their exact integer stats plus the population `near` of the
 f32 near-tie band; the host re-scores the candidates exactly and detects
 (near > k) when the f32 ranking was not enough, so no winner ever depends
-on f32 rounding.
+on f32 rounding.  Both paths select through ops/select.py's
+`band_candidates` and `pick_rows`: one query is a batch of one row.
 
 The batch path (`search_batch` -> `batched_search_exact`) buckets queries
 by padded shape and streams each bucket through microbatches: one upload
@@ -52,7 +53,6 @@ from psa_torch.config import CONFIG
 from psa_torch.core.alphabet import (ALPHABET_ERROR, NUM_LETTERS, PAD_CODE,
                                      encode_batch_checked, encode_checked,
                                      validate)
-from psa_torch.core.oracle import rescore_multi
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (DeviceTables, ScoringTables,
                                    build_tables_cached, device_tables_cached,
@@ -63,8 +63,7 @@ from psa_torch.ops.epilogue import (TOPK, epilogue_pack,
                                     exact_topk_epilogue_rows,
                                     pack_epilogue_outputs,
                                     unpack_epilogue_outputs)
-from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
-                                  select_best, totals_from_stats)
+from psa_torch.ops.select import band_candidates, pick_rows, select_best
 from psa_torch.ops.sweep import (batched_plan, bucket_shape, offset_stats,
                                  plan_bucket, plan_shapes, sweep,
                                  sweep_batched, sweep_batched_shared,
@@ -96,13 +95,14 @@ def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
                 tables: ScoringTables, buf: np.ndarray,
                 stats5: torch.Tensor, k: int = TOPK) -> SearchResult | None:
     """Bit-exact host selection from one fetched epilogue buffer (None = no
-    mutation exists).  When more than k offsets fall in the f32 band, the
-    full stats come from the sweep output already on the device."""
+    mutation exists): its k candidates as one row of `band_candidates` and
+    `pick_rows`, on the int32 codes.  When more than k offsets fall in the
+    f32 band, the full stats come from the sweep output already on the
+    device."""
     with spans.span("host_select"):
         topi, stats_k, near, best = unpack_epilogue_outputs(buf, k)
         if np.isneginf(best[0]):
             return None
-        n2 = codes2.shape[0]
         if near[0] > k:
             with spans.span("near_fallback"):
                 st = stats5[:, :noff].cpu().numpy()
@@ -111,16 +111,11 @@ def host_select(codes1: np.ndarray, codes2: np.ndarray, noff: int,
                                        codes2)
                 except NoMutationFound:
                     return None
-        idx = topi[0]
-        st = stats_k[0].T                                    # (k, 5)
-        keep = (idx < noff) & (st[:, 4] >= 0)
-        idx, st = idx[keep], st[keep]
-        order = np.argsort(idx, kind="stable")
-        idx, st = idx[order], st[order]
-        totals = totals_from_stats(st[:, :4], st[:, 4], tables)
-        bq = totals.max() if tables.is_max else totals.min()
-        cand = idx[np.abs(totals - bq) <= candidate_epsilon(tables, n2)]
-        return pick_from_candidates(codes1, codes2, tables, cand)
+        n2s = np.array([codes2.shape[0]], np.int32)
+        rows, offs = band_candidates(topi, np.swapaxes(stats_k, 1, 2), [noff],
+                                     n2s, tables)
+        return pick_rows(codes1[None], codes2[None], n2s, tables, rows, offs,
+                         1)[0]
 
 
 def search_exact(codes1: np.ndarray, codes2: np.ndarray, dtabs: DeviceTables,
@@ -468,18 +463,20 @@ def _host_select(c1b, c2b, noffs, n2s, dtabs: DeviceTables, topi, stats_k,
     """Bit-exact host selection for one microbatch -> list of results.
 
     stats_k: (n, k, 5).  Rows with best = -inf have no mutation (None).
+    The other rows go through `band_candidates` and `pick_rows` together,
+    one re-score call for the microbatch.
     Rows with near > k need every offset's stats: the row is swept again
     alone on `dtabs`' device (the same integers the batch computed) and
     selected from them."""
     with spans.span("host_select"):
         tables = dtabs.tables
-        results: list = [None] * c1b.shape[0]
         nomut = np.isneginf(best)
         fallback = (~nomut) & (near > k)
-        main = (~nomut) & (~fallback)
-        if main.any():
-            _select_rows_vectorized(results, np.nonzero(main)[0], c1b, c2b,
-                                    noffs, n2s, tables, topi, stats_k)
+        main = np.flatnonzero((~nomut) & (~fallback))
+        rows, offs = band_candidates(topi[main], stats_k[main], noffs[main],
+                                     n2s[main], tables)
+        results = pick_rows(c1b, c2b, n2s, tables, main[rows], offs,
+                            c1b.shape[0])
         for q in np.nonzero(fallback)[0]:
             with spans.span("near_fallback"):
                 noff, n2 = int(noffs[q]), int(n2s[q])
@@ -492,61 +489,6 @@ def _host_select(c1b, c2b, noffs, n2s, dtabs: DeviceTables, topi, stats_k,
                 except NoMutationFound:
                     results[q] = None
         return results
-
-
-def _select_rows_vectorized(results: list, rows: np.ndarray, c1b, c2b,
-                            noffs, n2s, tables: ScoringTables, topi,
-                            stats_k):
-    """Bit-exact winner selection for many queries with no per-query Python
-    in the arithmetic: totals -> epsilon band -> sequential re-score in
-    ascending offset order -> first bit-equal best, on (rows, k) blocks,
-    with every candidate of the microbatch re-scored together: one call of
-    the native `rescore_multi_native` when the library builds, else the
-    numpy `rescore_multi` (about max(n2) numpy steps per microbatch); the
-    two agree bit for bit."""
-    idx = topi[rows]                                       # (R, k)
-    st = stats_k[rows]                                     # (R, k, 5)
-    r_n, k = idx.shape
-    valid = (idx < noffs[rows][:, None]) & (st[:, :, 4] >= 0)
-    score = tables.score_from_counts(
-        st[:, :, :4].reshape(-1, 4)).reshape(r_n, k)
-    badv = -np.inf if tables.is_max else np.inf
-    mr = st[:, :, 4]
-    diffv = np.where(mr >= 0, tables.diff_vals[np.clip(mr, 0, None)], badv)
-    totals = np.where(valid, score + diffv, badv)
-    bq = totals.max(axis=1) if tables.is_max else totals.min(axis=1)
-    eps = candidate_epsilon(tables, n2s[rows])             # (R,)
-    cmask = valid & (np.abs(totals - bq[:, None]) <= eps[:, None])
-
-    ri, ci = np.nonzero(cmask)
-    offs = idx[ri, ci].astype(np.int64)
-    # group by query, ascending offsets within each group (the first
-    # bit-equal best in this order is the is_swapable winner)
-    order = np.lexsort((offs, ri))
-    ri, offs = ri[order], offs[order]
-    qidx = rows[ri]
-    if qidx.shape[0] == 0:
-        return
-
-    rescore = (native.rescore_multi_native if native.available()
-               else rescore_multi)
-    with spans.span("rescore", candidates=int(offs.shape[0])):
-        totals_seq, coffs, subs = rescore(c1b, c2b, n2s, tables, qidx, offs)
-    totals_seq = np.where(coffs >= 0, totals_seq, badv)
-
-    # per-group winner: best total, first occurrence in ascending order
-    starts = np.nonzero(np.r_[True, ri[1:] != ri[:-1]])[0]
-    red = np.maximum if tables.is_max else np.minimum
-    gbest = red.reduceat(totals_seq, starts)
-    hit_pos = np.where(totals_seq == np.repeat(gbest, np.diff(
-        np.r_[starts, ri.shape[0]])), np.arange(ri.shape[0]), ri.shape[0])
-    win = np.minimum.reduceat(hit_pos, starts)
-    for g, w in enumerate(win):
-        if not np.isfinite(gbest[g]):
-            continue
-        results[int(qidx[w])] = SearchResult(
-            offset=int(offs[w]), char_offset=int(coffs[w]),
-            sub_code=int(subs[w]), score=float(totals_seq[w]))
 
 
 def _host_engine_bucket(codes, idxs, results: list, w, is_max,

@@ -193,13 +193,6 @@ def _load(sp):
         _i32p, _i64p, ctypes.c_int32,
         _f64p, _i32p, _i32p,
     ]
-    lib.psa_rescore_batch.restype = None
-    lib.psa_rescore_batch.argtypes = [
-        _i32p, _i32p, ctypes.c_int32,
-        _f64p, _f64p, _i8p, ctypes.c_int32,
-        _i64p, ctypes.c_int32,
-        _f64p, _i32p, _i32p,
-    ]
     _self_test(lib)
     return lib
 
@@ -286,29 +279,6 @@ def score_offset_native(codes1: np.ndarray, codes2: np.ndarray,
                          int(tables.is_max), offset,
                          ctypes.byref(total), ctypes.byref(coff), ctypes.byref(sc))
     return total.value, coff.value, sc.value, None
-
-
-def rescore_batch_native(codes1: np.ndarray, codes2: np.ndarray,
-                         tables: ScoringTables, cand: np.ndarray):
-    """Candidate offsets re-scored sequentially; the contract of
-    core/oracle.rescore_candidates, bit for bit (f64 sums in the same
-    order).  Returns (totals f64, char_offsets i64, sub_codes i64)."""
-    lib = get_lib()
-    codes1 = np.ascontiguousarray(codes1, np.int32)
-    codes2 = np.ascontiguousarray(codes2, np.int32)
-    cand = np.ascontiguousarray(cand, np.int64)
-    if cand.size and not (0 <= cand.min()
-                          and cand.max() <= codes1.shape[0] - codes2.shape[0]):
-        raise ValueError("candidate offset out of range")
-    pair_w, diff, sub = _flat_tables(tables)
-    k = cand.shape[0]
-    totals = np.empty(k, np.float64)
-    coffs = np.empty(k, np.int32)
-    subs = np.empty(k, np.int32)
-    _count("rescore_batch")
-    lib.psa_rescore_batch(codes1, codes2, codes2.shape[0], pair_w, diff, sub,
-                          int(tables.is_max), cand, k, totals, coffs, subs)
-    return totals, coffs.astype(np.int64), subs.astype(np.int64)
 
 
 def rescore_multi_native(c1b: np.ndarray, c2b: np.ndarray, n2s: np.ndarray,

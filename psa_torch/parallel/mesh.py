@@ -43,10 +43,9 @@ from psa_torch.core.alphabet import pad_codes
 from psa_torch.core.result import NoMutationFound, SearchResult
 from psa_torch.core.tables import (ScoringTables, device_tables_cached,
                                    f32_band_epsilon)
-from psa_torch.ops.common import keyed_f32_totals_ops, round_up
+from psa_torch.ops.common import round_up
 from psa_torch.ops.epilogue import TOPK, epilogue_pack, unpack_epilogue_outputs
-from psa_torch.ops.select import (candidate_epsilon, pick_from_candidates,
-                                  select_best, totals_from_stats)
+from psa_torch.ops.select import band_candidates, pick_rows, select_best
 from psa_torch.ops.sweep import L2_ALIGN, TILE_O, sweep, upload_codes
 
 # Full-stats fallbacks taken by search_sharded and search_sharded_2d: a
@@ -232,20 +231,18 @@ def _select_from_shard_topk(buf: np.ndarray, noff: int, l2p: int,
     # only if its local best reaches the global band
     if np.any((near > TOPK) & (best >= bg - eps32)):
         return None
-    offs = topi.reshape(-1).astype(np.int64)
-    st = np.swapaxes(stats_k, 1, 2).reshape(-1, 5)
-    keep = (offs < noff) & (st[:, 4] >= 0)
-    offs, st = offs[keep], st[keep]
-    if offs.size == 0:
+    # one row of every shard's candidates; shards own disjoint blocks, so
+    # the row's ascending offsets give the lowest-offset tie-break
+    c1 = np.asarray(codes1, np.int32)
+    c2 = np.asarray(codes2, np.int32)
+    n2s = np.array([c2.shape[0]], np.int32)
+    rows, cand = band_candidates(topi.reshape(1, -1),
+                                 np.swapaxes(stats_k, 1, 2).reshape(1, -1, 5),
+                                 [noff], n2s, tables)
+    res = pick_rows(c1[None], c2[None], n2s, tables, rows, cand, 1)[0]
+    if res is None:
         raise NoMutationFound("no offset admits a legal substitution")
-    totals = totals_from_stats(st[:, :4], st[:, 4], tables)
-    bq = totals.max() if tables.is_max else totals.min()
-    cand = offs[np.abs(totals - bq) <= candidate_epsilon(
-        tables, int(np.asarray(codes2).shape[0]))]
-    # ascending = the lowest-offset tie-break (shards own disjoint blocks)
-    return pick_from_candidates(np.asarray(codes1, np.int32),
-                                np.asarray(codes2, np.int32), tables,
-                                np.sort(cand))
+    return res
 
 
 def _full_stats_select(codes1, codes2, tables: ScoringTables,
@@ -419,17 +416,3 @@ def search_sharded_auto(codes1: np.ndarray, codes2: np.ndarray,
         return search_sharded(codes1, codes2, tables, mesh, kernel)
     return search_sharded_2d(codes1, codes2, tables,
                              make_mesh_2d(mesh, n_op, n_ch), kernel)
-
-
-def device_reduce_winner(stats: torch.Tensor, tables: ScoringTables,
-                         noff: int):
-    """Winner by the f32 ranking without leaving the stats' device: stats
-    (noff_pad, 5) int32 -> (offset, maxrank, total_f32), the first argmax
-    being the lowest offset on ties.  For throughput paths; exact flows use
-    ops/select.py."""
-    dtabs = device_tables_cached(tables, stats.device)
-    keyed, total = keyed_f32_totals_ops(stats[:, :4].T, stats[:, 4],
-                                        dtabs.w32, dtabs.diff32,
-                                        tables.is_max, noff)
-    best = torch.argmax(keyed)
-    return best, stats[best, 4], total[best]

@@ -31,6 +31,7 @@ from psa_torch.core.result import NoMutationFound
 from psa_torch.core.tables import build_tables, device_tables
 from psa_torch.models import batch
 from psa_torch.models.search import AlignmentSearchEngine
+from psa_torch.ops import select
 from psa_torch.ops import sweep as sw
 from psa_torch.ops.common import keyed_f32_totals_ops
 from psa_torch.utils import cli, generator
@@ -266,8 +267,8 @@ def test_rescore_multi_bit_equal_to_native(is_max):
 
 @pytest.mark.parametrize("is_max", [False, True])
 def test_select_rows_vectorized_matches_jax(is_max):
-    """The same fetched candidates through both packages' vectorized host
-    selection."""
+    """The same fetched candidates through the port's band and pick
+    (ops/select.py) and the JAX package's vectorized host selection."""
     rng = np.random.default_rng(9 + is_max)
     t = build_tables(W, is_max)
     b, n1, n2 = 6, 700, 120
@@ -282,9 +283,10 @@ def test_select_rows_vectorized_matches_jax(is_max):
     topi, stats_k, near, best = batch.unpack_epilogue_outputs(packed, batch.TOPK)
     stats_k = np.swapaxes(stats_k, 1, 2)
     rows = np.nonzero(near <= batch.TOPK)[0]
-    got, want = [None] * b, [None] * b
-    batch._select_rows_vectorized(got, rows, c1b, c2b, noffs, n2s, t, topi,
-                                  stats_k)
+    ri, offs = select.band_candidates(topi[rows], stats_k[rows], noffs[rows],
+                                      n2s[rows], t)
+    got = select.pick_rows(c1b, c2b, n2s, t, rows[ri], offs, b)
+    want = [None] * b
     jbatch._select_rows_vectorized(want, rows, c1b.astype(np.int32),
                                    c2b.astype(np.int32), noffs, n2s,
                                    jax_build_tables(W, is_max), topi, stats_k)

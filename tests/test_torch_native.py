@@ -85,24 +85,6 @@ def test_search_native_empty_range_and_no_mutation():
 
 
 @pytest.mark.parametrize("weights,is_max", CASES)
-def test_rescore_batch_native_matches_numpy(weights, is_max):
-    rng = np.random.default_rng(11 + 2 * WEIGHTS.index(weights) + is_max)
-    t, jt = build_tables(np.array(weights), is_max), jax_build_tables(np.array(weights), is_max)
-    c1, c2 = codes_with_other(rng, 1500), codes_with_other(rng, 333)
-    cand = np.sort(rng.choice(1500 - 333 + 1, 40, replace=False))
-    got = native.rescore_batch_native(c1, c2, t, cand)
-    want = rescore_candidates(c1, c2, t, cand)
-    jwant = jnative.rescore_batch_native(c1, c2, jt, cand)
-    for g, w, j in zip(got, want, jwant):
-        np.testing.assert_array_equal(g, w)
-        np.testing.assert_array_equal(g, j)
-        assert g.dtype == w.dtype
-    for o in cand[:3]:
-        total, ci, si, _ = native.score_offset_native(c1, c2, t, int(o))
-        assert (total, ci, si) == score_offset_sequential(c1, c2, t, int(o))[:3]
-
-
-@pytest.mark.parametrize("weights,is_max", CASES)
 def test_rescore_multi_native_matches_numpy(weights, is_max):
     rng = np.random.default_rng(21 + 2 * WEIGHTS.index(weights) + is_max)
     t, jt = build_tables(np.array(weights), is_max), jax_build_tables(np.array(weights), is_max)
@@ -120,6 +102,16 @@ def test_rescore_multi_native_matches_numpy(weights, is_max):
     for g, w, j in zip(got, want, jwant):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, j)
+    # one query's candidates: the numpy single-query re-scorer, and the
+    # library's one-offset scan for the first three
+    q = int(qidx[0])
+    mine = qidx == q
+    c1, c2 = c1b[q].astype(np.int32), c2b[q, : n2s[q]].astype(np.int32)
+    for g, w in zip(got, rescore_candidates(c1, c2, t, offs[mine])):
+        np.testing.assert_array_equal(g[mine], w)
+    for o in offs[mine][:3]:
+        total, ci, si, _ = native.score_offset_native(c1, c2, t, int(o))
+        assert (total, ci, si) == score_offset_sequential(c1, c2, t, int(o))[:3]
     with pytest.raises(ValueError):
         native.rescore_multi_native(c1b, c2b, n2s, t, qidx[:1],
                                     np.array([l1], np.int64))
@@ -183,9 +175,9 @@ def test_host_selection_runs_native(is_max):
     re-scorer, and picks what the numpy engine picks."""
     rng = np.random.default_rng(50 + is_max)
     c1, c2 = random_codes(rng, 3000), random_codes(rng, 400)
-    before = native.calls["rescore_batch"]
+    before = native.calls["rescore_multi"]
     got = AlignmentSearchEngine((1, 3, 4, 2), is_max, device="cpu").search_codes(c1, c2)
-    assert native.calls["rescore_batch"] == before + 1
+    assert native.calls["rescore_multi"] == before + 1
     want = AlignmentSearchEngine((1, 3, 4, 2), is_max, backend="numpy").search_codes(c1, c2)
     assert winner(got) == winner(want)
 

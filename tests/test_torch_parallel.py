@@ -86,22 +86,6 @@ def test_sharded_offset_stats_match_jax(is_max):
     np.testing.assert_array_equal(got.numpy()[:noff, 4], maxrank)
 
 
-def test_device_reduce_winner_matches_host_select():
-    rng = np.random.default_rng(3)
-    t = build_tables(np.array(W), False)
-    c1, c2 = random_codes(rng, 2000), random_codes(rng, 400)
-    c1p, c2p, noff = mesh.pad_for_mesh(c1, c2, 8)
-    stats = mesh.sharded_offset_stats(c1p, c2p, t, cpu(8))
-    best, maxrank, total = mesh.device_reduce_winner(stats, t, noff)
-    j1, j2, _ = jmesh.pad_for_mesh(c1, c2, 8)
-    jt = jax_build_tables(np.array(W), False)
-    jstats = jmesh.sharded_offset_stats(j1, j2, jt, jmesh.make_mesh())
-    jbest, jmr, jtotal = jmesh.device_reduce_winner(jstats, jt, noff)
-    assert int(best) == int(jbest) == numpy_ref(W, False, c1, c2)[0]
-    assert int(maxrank) == int(jmr)
-    assert float(total) == float(jtotal)
-
-
 @pytest.mark.parametrize("n_op,n_ch", SHAPES_2D)
 def test_sharded_2d_matches_jax(n_op, n_ch, count_fallbacks):
     rng = np.random.default_rng(29)

@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (psa_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against TREE]
+
+With --against TREE (a directory holding another commit's psa_torch) the
+`sweep_ab` phase times that tree's offset sweeps and this checkout's in
+turns on the same card (psa_torch/utils/sweep_ab.py); without it, this
+checkout's alone.
 
 Builds the sweep kernels and the top-k epilogue kernel from psa_torch/csrc
 and holds each against its plain PyTorch version on the card (the epilogue
@@ -120,12 +125,25 @@ LAB = dict(n1=131_072, n2=8192, iters=16, rounds=3)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 SMEM_LOADS_PER_S = 132 * 32 * 1.98e9
-# The least work per (offset, position) pair on the table route (csrc/sweep.cu
-# and csrc/sweep_batched.cu): one shared-memory table read and two integer
-# ops, as the batched pair loop does it (one address add, and half an IADD3
-# and half a VIMNMX3: it accumulates and maxes two positions per
-# instruction).  At these rates the table reads bound the route.
+# The least work per (offset, position) pair on the table route (the
+# sweeps' pair loop before the bit-sliced one): one shared-memory table read
+# and two integer ops (one address add, and half an IADD3 and half a
+# VIMNMX3: it accumulates and maxes two positions per instruction).  At
+# these rates the table reads bound that route.
 INT_OPS_PER_PAIR = 2
+# The bit-sliced route of csrc/sweep.cu and csrc/sweep_batched.cu
+# (csrc/sweep_core.cuh): a warp covers 1024 offsets (a 32-bit word a lane)
+# at each Seq2 position.  Per position and warp it makes eight 32-bit
+# shared loads, one wavefront each (two columns of each of four kinds), and
+# BITSLICED_ALU_OPS warp instructions on the INT32 lanes: four funnel
+# shifts, an AND, an OR, the carry-save adders (31 of two LOP3s a kind per
+# 32 positions, four kinds), the carry of 32 into six planes (two a plane a
+# kind per 32 positions), a PRMT and a LEA for the address (556 of the
+# main loop's 855 instructions per 32 positions in the SASS of an sm_90a
+# build).  So a pair costs 8 / 1024 of a wavefront (32 lanes per SM per
+# clock serve one) and 32 x 17.4 / 1024 INT32 lane ops.
+BITSLICED_LOADS_PER_POS = 8
+BITSLICED_ALU_OPS = 556 / 32
 # The tensor-core route of the lab's sweeps (csrc/sweep_mma.cu and
 # csrc/sweep_mma_v3.cu): per pair, a 32-deep int8 product (64 ops) at the
 # dense int8 peak, one band byte written to and read from shared memory
@@ -160,6 +178,18 @@ def sweep_bound(pairs: float, in_bytes: int, out_bytes: int):
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = max(pairs * INT_OPS_PER_PAIR / INT32_OPS_PER_S,
                  pairs / SMEM_LOADS_PER_S) * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bitsliced_bound(pairs: float, in_bytes: int, out_bytes: int):
+    """(bound_ms, bound_by) of a sweep on the bit-sliced route: the bytes
+    of each input read once and of the output written once over HBM,
+    against the real pairs over the shared-memory wavefronts
+    (BITSLICED_LOADS_PER_POS a warp's 1024 pairs) and the INT32 lanes
+    (BITSLICED_ALU_OPS warp instructions a warp's 1024 pairs)."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(pairs / 1024 * BITSLICED_ALU_OPS * 32 / INT32_OPS_PER_S,
+                 pairs / 1024 * BITSLICED_LOADS_PER_POS * 32 / SMEM_LOADS_PER_S) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -344,7 +374,7 @@ def batched_kernel_checks(torch, sw, code, dev):
 
     # one query's worth of warp slots at Seq2 rows of 1120 codes: a bucket
     # of 4-tile queries just past it sweeps two segments per item
-    slots = sw.batched_plan(1120, sw.TILE_O, 1, False)["blocks_per_sm"] * 4 * sms
+    slots = sw.batched_plan(1120, sw.TILE_O, 1, False)["blocks_per_sm"] * sms
     big = None
     for case, b, n1, n2, hp, op, ragged, shared in (
             ("batch_2048x512", BATCH["b"], BATCH["n1"], BATCH["n2"], 0.0, 0.0, False, True),
@@ -355,7 +385,7 @@ def batched_kernel_checks(torch, sw, code, dev):
             ("noff_multiple_of_tile", 7, 967, 200, 0.0, 0.0, False, True),
             ("b_1", 1, 3000, 500, 0.0, 0.0, False, True),
             ("b_not_multiple_of_slots", 1111, 1000, 300, 0.0, 0.0, False, True),
-            ("seq2_segments", slots // 4 + 5, 2123, 1100, 0.0, 0.0, False, True),
+            ("seq2_segments", slots + 5, 2123, 1100, 0.0, 0.0, False, True),
             ("seq2_split", 2, 5000, 4000, 0.0, 0.0, False, True)):
         c1b, c2b, _, _ = padded_batch(rng, sw, b, n1, n2, hp, op, ragged)
         d1 = torch.from_numpy(c1b).to(dev)
@@ -435,8 +465,11 @@ def batched_cell_phase(torch, sw, code, dev):
                                         for q in range(b)], runs=10)
     bound_ms, bound_by = batched_bound([noff] * b, [n2] * b, d1.numel(), d2.numel(),
                                        noff_pad)
+    route_ms, route_by = bitsliced_bound(float(noff) * n2 * b, d1.numel() + d2.numel(),
+                                         5 * 4 * noff_pad * b)
     line = {"phase": "batched_cell", "b": b, "n1": n1, "n2": n2,
             "sweeps_ms": list(sweeps_ms), "bound_ms": bound_ms, "bound_by": bound_by,
+            "bitsliced_bound_ms": route_ms, "bitsliced_bound_by": route_by,
             "runs": 10}
     for name, fn in (("sweep_batched", lambda: sw.sweep_batched(d1, d2, code)),
                      ("sweep_batched_shared",
@@ -444,8 +477,27 @@ def batched_cell_phase(torch, sw, code, dev):
         plan = sw.batched_plan(l2p, noff_pad, b, name != "sweep_batched")
         ms = cuda_ms(torch, fn, runs=10)
         line[name] = {"plan": plan, "ms": list(ms), "over_sweeps": ms[0] / sweeps_ms[0],
-                      "of_bound": bound_ms / ms[0],
+                      "of_bound": bound_ms / ms[0], "of_bitsliced_bound": route_ms / ms[0],
                       "balance": plan["units"] / (plan["workers"] * plan["per_worker"])}
+    emit(line)
+    return line
+
+
+def sweep_ab_phase() -> dict:
+    """`psa_torch.utils.sweep_ab` in a process of its own: `sweep` and both
+    batched kernels at 600,000 x 250,000 (B = 1, 4, 8) and at the batch
+    workload's small shape, ms a launch; with `--against TREE` on the
+    command line, TREE's sweeps and this checkout's in turns (TREE, this,
+    this, TREE), else this checkout's alone.  Emits the summary line."""
+    trees = ["."]
+    if "--against" in sys.argv:
+        other = sys.argv[sys.argv.index("--against") + 1]
+        trees = [other, ".", ".", other]
+    proc = subprocess.run([sys.executable, "-m", "psa_torch.utils.sweep_ab", *trees],
+                          cwd=ROOT, capture_output=True, text=True, timeout=1800)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    line = dict(lines[-1] if lines else {}, phase="sweep_ab", trees=trees,
+                rc=proc.returncode, runs_lines=lines[:-1])
     emit(line)
     return line
 
@@ -508,6 +560,27 @@ def sweep_checks(torch, sw, code, dev):
               "rows4_sum": int(got[:4, :noff].sum().item())})
         if diff != 0 or tuple(got.shape) != (5, noff_pad):
             raise AssertionError(f"sweep disagrees with its plain version at {name}")
+    # all 'A' in the maximum mode meets no top rank: every step sweeps the
+    # lower thresholds too, which the counters show
+    from psa_torch.core.tables import build_tables
+
+    code_max = torch.from_numpy(build_tables(np.array(NORTH_STAR["weights"]),
+                                             True).code).to(dev)
+    noff, noff_pad, l2p, l1k = sw.plan_shapes(200_000, 2048)
+    d1, d2 = sw.upload_codes(dev, (np.zeros(200_000, np.int32), l1k),
+                             (np.zeros(2048, np.int32), l2p))
+    counters = sw.rank_counters(dev)
+    got = sw.sweep(d1, d2, code_max, counters)
+    torch.cuda.synchronize()
+    diff = int((got.long() - sw.sweep_plain(d1, d2, code_max).long()).abs().max().item())
+    passes, steps = counters.tolist()
+    emit({"phase": "kernel_vs_plain", "case": "all_A_maximum", "n1": 200_000, "n2": 2048,
+          "noff_pad": noff_pad, "l2p": l2p, "max_abs_diff": diff, "tolerance": 0,
+          "rank_passes_pm": sw.rank_passes_pm((passes, steps))})
+    if diff != 0 or passes <= steps:
+        raise AssertionError("sweep at all 'A' (maximum) disagrees with its plain "
+                             "version or took no lower threshold pass")
+    max_abs = max(max_abs, diff)
     flat = torch.full((1 + 256 + 64,), 28, dtype=torch.uint8, device=dev)
     try:
         sw.sweep(flat[1:], flat[1:65].clone(), code)
@@ -1019,8 +1092,10 @@ def epilogue_launch_count() -> dict:
     epilogue, and the kernel's device µs per call at four shapes, from
     `epilogue_launches_child` in a new process; checks that the query
     enqueued one epilogue kernel, as many as the wrapper counted, one
-    host-to-device copy and 6 device events in all (no memset beside the
-    sweep's)."""
+    host-to-device copy and 8 device events in all: the upload, the sweep's
+    two memsets, the sweep, the epilogue, the fetch, and the zeroing and the
+    copy of the sweep's rank counters, which the span recorder (on from
+    import) reads (no memset beside the sweep's)."""
     p = subprocess.run(
         [sys.executable, "-c",
          "import sys, chip_smoke; sys.exit(chip_smoke.epilogue_launches_child())"],
@@ -1043,7 +1118,7 @@ def epilogue_launch_count() -> dict:
         f"the profiler saw {count['epilogue_kernels']} epilogue kernels, the wrapper " \
         f"counted {got['counted_cuda_launches']}"
     assert count["h2d_copies"] == 1, f"host-to-device copies per query: {count}"
-    assert count["device_events"] == 6, f"device events per query: {count}"
+    assert count["device_events"] == 8, f"device events per query: {count}"
     assert all(us > 0 for us in got["device_us"].values()), \
         f"the profiler saw no epilogue kernel: {got['device_us']}"
     return line
@@ -3068,6 +3143,9 @@ def main() -> int:
                   "plain_runs": 10})
 
     batched_cell_phase(torch, sw, code, dev)
+    ab = sweep_ab_phase()
+    if not ab.get("digests_agree"):
+        return fail("the sweeps' outputs differ between the timed trees")
 
     dtabs_b = device_tables(build_tables(np.array(BATCH["weights"]),
                                          BATCH["is_max"]), dev)

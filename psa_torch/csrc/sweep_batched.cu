@@ -20,52 +20,47 @@
 //        with v > 0 and (v - 1) & 3 == k; row 4 is the maxrank
 //        max(((max v - 1) >> 2) - 1, -1).  Exact integers: any order of the
 //        sums (and of the atomics) gives the same bits.
-//   noff_pad is a multiple of kGranule, l2p of kFlush; c1, c2 and out are
+//   noff_pad is a multiple of kPad (256), l2p of kFlush; c1, c2 and out are
 //   16-byte aligned (the copies below are 16-byte bulk copies).
 //
-// What bounds it on this card: the shared-memory table reads, with the
-// INT32 issue rate as close.  Per (offset, position) pair the work is one
-// table read (32 lanes per SM per clock) and two integer ops (the pair loop
-// below: one address add, half an IADD3 and half a VIMNMX3), while a code
-// byte from device memory serves a whole tile: 1024 queries of 2048 x 512
-// hold 8.06e8 real pairs, 0.096 ms at the table-read rate (0.096 ms at the
-// INT32 rate too), against ~3 MB of codes in and 37 MB of stats out
-// (~0.012 ms of HBM).
+// What bounds it on this card: as sweep.cu's, the INT32 lanes and the
+// shared-memory wavefronts of the bit-sliced pair loop (sweep_core.cuh):
+// ~0.54 INT32 lane ops and 1/128 of a wavefront a pair, while a code byte
+// from device memory serves a whole warp tile: B = 4 of 600,000 x 250,000
+// hold 3.5e11 real pairs, 11.3 ms at the INT32 rate, against ~3.4 MB of
+// codes in and 28 MB of stats out (~0.009 ms of HBM).
 // What the design does about it:
-//   * Offset tiles that fit the bucket.  A tile is one warp's offsets
-//     (kGranule = 32 lanes x 8), so a bucket's offsets pad to its longest
-//     query in 256s: 1537 real offsets sweep 1792 padded ones (1.17x the
-//     pairs), not 2048 (1.33x) as whole 1024-offset blocks did.
+//   * Offset tiles of one warp (kGranule = 32 lanes x a 32-bit word); a
+//     bucket's offsets still pad to its longest query in 256s (kPad), and
+//     a row's last tile past noff_pad copies its window up to the end of
+//     the row and neither votes nor writes the lanes beyond.
 //   * An even ("Stream-K") split over a persistent grid, as sweep.cu's.
 //     The grid holds as many blocks as the card has resident slots, and
-//     each warp is an independent worker.  An item is one (tile, query),
-//     items run query-fastest within a tile, and an item is `upi` units of
-//     Seq2 positions, contiguous: the whole of Seq2 where it fits one step
-//     (l2p <= kSegB), else 32 positions.  Worker w of W takes the units
-//     [w U / W, (w + 1) U / W) of the U in the launch, so no worker has
-//     more than one unit above the average, however few and long the items
-//     are.  Where an item is one step the units are the items, and a
-//     worker's range is a (tile, group of queries) whose one Seq1 window
-//     serves the whole group in the shared kernel.  Warps, not 4-warp
-//     blocks on 1024-offset items, are the workers: one warp tile is one
-//     granule, so a bucket of 7 tiles per query (1792 offsets) leaves no
-//     warp of a block idle; after the table is expanded no barrier spans
-//     more than one warp, so a warp that waits on its copy holds up no
-//     other; and the list stays fine-grained enough to balance the SMs.
-//   * Staging that overlaps the sweep.  Lane 0 of a warp copies the next
+//     each block (two warps on one tile) is an independent worker.  An item
+//     is one (tile, query), items run query-fastest within a tile, and an
+//     item is `upi` units of Seq2 positions, contiguous: the whole of Seq2
+//     where it fits one step (l2p <= kSegB), else 32 positions.  Worker w of
+//     W takes the units [w U / W, (w + 1) U / W) of the U in the launch, so
+//     no worker has more than one unit above the average, however few and
+//     long the items are.  Where an item is one step the units are the
+//     items, and a worker's range is a (tile, group of queries) whose one
+//     Seq1 window serves the whole group in the shared kernel, whose bit
+//     vectors the group's steps build once.  At most kBlocksPerSm blocks an
+//     SM, two warps a scheduler; a block's barriers span only its own two
+//     warps, so a block that waits on its copy holds up no other.
+//   * Staging that overlaps the sweep.  Thread 0 of a block copies the next
 //     step's Seq1 window and Seq2 segment into the other stage of a
 //     two-stage ring in shared memory with cp.async.bulk (Hopper's 1-D
-//     TMA), completing on that stage's mbarrier, while the warp sweeps the
-//     current step.  No thread spends an instruction per byte on staging,
-//     and no block-wide barrier stops the sweep.  Codes are masked to the
-//     table's 32 rows where they are read, so a stray byte never reads
-//     outside the table.
-//   * A compact write.  A lane's 8 consecutive offsets of a row are 32
+//     TMA), completing on that stage's mbarrier, while the block sweeps the
+//     current step.  No thread spends an instruction per byte on staging.
+//     Codes are masked to the table's 32 rows where they are read, so a
+//     stray byte never reads outside the table.
+//   * A compact write.  A lane's 32 consecutive offsets of a row are 128
 //     contiguous bytes: a worker that owns every unit of an item stores
-//     rows 0-4 as two 16-byte stores each, with row 4 converted to the
-//     maxrank in registers, and adds into them on its later steps of the
-//     item (no memset, no atomics); no pass over the output follows the
-//     kernel and no row of zeros is written.
+//     rows 0-4 as eight 16-byte stores each, turned from bit planes into
+//     ints in registers, and adds into them on its later steps of the item
+//     (no memset, no atomics); no pass over the output follows the kernel
+//     and no row of zeros is written.
 //   * Long Seq2.  A worker walks its range in steps of at most kSegB
 //     positions within one item, through the same ring.  Where a range
 //     starts or ends inside an item, the workers that share it add their
@@ -73,10 +68,10 @@
 //     conversion is monotone), through a row of shared memory so that a
 //     warp's atomics fall on 32 consecutive ints, into an output that the
 //     entry point sets to 0 and -1 first, when some item is shared.
-//   * The pair loop is sweep_core.cuh's sweep_step, shared with sweep.cu:
-//     an expanded 32-bit table entry (a 6-bit class field, the max code in
-//     the top byte), a transposed table, an 8-offset register window, and
-//     two positions per IADD3 and per VIMNMX3.
+//   * The pair loop is sweep_core.cuh's bit-sliced main_pass, shared with
+//     sweep.cu; a step that continues the last one in its item keeps the
+//     bit vectors' last 32 columns.  Given a `counters` buffer, each worker
+//     adds its threshold passes and its steps to it once, at its end.
 
 #include <climits>
 
@@ -93,18 +88,14 @@ struct Work {
   const uint8_t* c1;        // Seq1 rows (one row when shared)
   const uint8_t* c2;        // Seq2 rows
   int32_t* out;
+  unsigned long long* counters;   // [passes, steps] added once a worker, or null
   long l1k;
   int l2p, noff_pad, b;
   int upi;                  // units per item: 1 where l2p <= kSegB, else l2p / kFlush
   int unit;                 // Seq2 positions per unit: l2p / upi
   int seg_max;              // min(l2p, kSegB): a ring stage's Seq2 bytes
-  long units;               // noff_pad / kGranule * b * upi
+  long units;               // ceil(noff_pad / kGranule) * b * upi
 };
-
-__host__ __device__ constexpr int warp_bytes(int seg_max) {
-  // two mbarriers, two Seq1 windows, two Seq2 segments, one row of a tile
-  return 16 + 2 * (kGranule + seg_max) + 2 * seg_max + 4 * kGranule;
-}
 
 // A worker's place in its range of units: the step's item (query q of tile
 // t), its first unit k within the item and its n units, and the units left
@@ -164,12 +155,16 @@ __device__ __forceinline__ void issue(const Work& wk, const Cursor& c,
                                       uint64_t* bar) {
   const int p0 = c.p0(wk);
   const uint32_t seg = c.seg(wk);
+  // a last tile past noff_pad copies the window up to the end of the row
+  const long at = static_cast<long>(c.t) * kGranule + p0;
+  const uint32_t wb = static_cast<uint32_t>(min(static_cast<long>(kGranule + seg),
+                                                wk.l1k - at));
   fence_proxy_async();
-  mbar_expect(bar, seg + (win ? kGranule + seg : 0));
+  mbar_expect(bar, seg + (win ? wb : 0));
   bulk_copy(s2, wk.c2 + static_cast<long>(c.q) * wk.l2p + p0, seg, bar);
   if (win) {
     const uint8_t* row = kShared ? wk.c1 : wk.c1 + static_cast<long>(c.q) * wk.l1k;
-    bulk_copy(win, row + static_cast<long>(c.t) * kGranule + p0, kGranule + seg, bar);
+    bulk_copy(win, row + at, wb, bar);
   }
 }
 
@@ -177,29 +172,26 @@ template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 sweep_batched_kernel(const Work wk, const int8_t* __restrict__ code) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);   // tab[c2 * 32 + c1]
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int win_bytes = kGranule + wk.seg_max;
-  uint8_t* mine = smem + kTableBytes + warp * warp_bytes(wk.seg_max);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(mine);   // one per ring stage
-  uint8_t* win = mine + 16;                            // [2][win_bytes]
-  uint8_t* s2 = win + 2 * win_bytes;                   // [2][seg_max]
-  int32_t* row = reinterpret_cast<int32_t*>(s2 + 2 * wk.seg_max);  // [kGranule]
+  const Smem m(smem, wk.seg_max);
 
-  expand_table(tab, code);
-  if (lane == 0) {
-    mbar_init(bar);
-    mbar_init(bar + 1);
+  TableRow row;
+  row.load(code);
+  Masks masks;
+  masks.make(row);
+  if (warp == 0) masks.put(m.rt);
+  if (threadIdx.x == 0) {
+    mbar_init(m.bar);
+    mbar_init(m.bar + 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const long workers = static_cast<long>(gridDim.x) * kWarps;
   Cursor cur, nxt;
-  cur.start(wk, static_cast<long>(warp) * gridDim.x + blockIdx.x, workers);
+  cur.start(wk, blockIdx.x, gridDim.x);
   nxt = cur;
-  // The producer (lane 0) runs one step ahead of the sweep.  Step n uses
+  // The producer (thread 0) runs one step ahead of the sweep.  Step n uses
   // ring stage n & 1, whose mbarrier completes once per use: its phase
   // parity at step n is (n >> 1) & 1.  A Seq1 window goes to buffer
   // (windows copied so far) & 1, which the steps two windows back have
@@ -207,40 +199,43 @@ sweep_batched_kernel(const Work wk, const int8_t* __restrict__ code) {
   int windows_issued = 0, windows_swept = 0;
   auto produce = [&](int stage) {
     const bool nw = nxt.new_window<kShared>(wk);
-    if (lane == 0) {
-      issue<kShared>(wk, nxt, nw ? win + (windows_issued & 1) * win_bytes : nullptr,
-                     s2 + stage * wk.seg_max, bar + stage);
+    if (threadIdx.x == 0) {
+      issue<kShared>(wk, nxt, nw ? m.win + (windows_issued & 1) * win_bytes : nullptr,
+                     m.s2 + stage * wk.seg_max, m.bar + stage);
     }
     windows_issued += nw;
     nxt.next(wk);
   };
   if (!nxt.done()) produce(0);
 
-  const uint32_t tab_s = smem_u32(tab);
-  uint32_t mx[kOffsetsPerThread], c02[kOffsetsPerThread], c13[kOffsetsPerThread];
-  int v[5][kOffsetsPerThread];
-  for (int n = 0; !cur.done(); ++n) {
-    const int stage = n & 1;
+  // A step keeps the last one's bit vectors where it sweeps the same window
+  // (a shared-Seq1 run) and continues them where that one swept a full kSegB
+  // of the same item, if that step made one pass (clean).
+  Tally tally;
+  bool clean = false, full = false;
+  for (int k = 0; !cur.done(); ++k) {
+    const int stage = k & 1;
     if (!nxt.done()) produce(stage ^ 1);
-    windows_swept += cur.new_window<kShared>(wk);
-    const uint8_t* w = win + ((windows_swept - 1) & 1) * win_bytes;
-    mbar_wait(bar + stage, static_cast<uint32_t>(n >> 1) & 1);
-    sweep_step(tab_s, w, s2 + stage * wk.seg_max, cur.seg(wk), mx, c02, c13);
-    step_stats5(mx, c02, c13, v);
-    int32_t* o = wk.out + static_cast<long>(cur.q) * 5 * wk.noff_pad + cur.t * kGranule;
-    if (cur.whole) {
-      store_stats5(o + lane * kOffsetsPerThread, wk.noff_pad, cur.first(), v);
-    } else {
-      add_stats5(o, wk.noff_pad, row, v);
-    }
-    __syncwarp();                  // every lane is done with this stage
+    const bool nw = cur.new_window<kShared>(wk);
+    windows_swept += nw;
+    const int seg = cur.seg(wk);
+    const Vectors vectors = !cur.first() && clean && full ? Vectors::kCarry
+                            : nw || !clean                ? Vectors::kBuild
+                                                          : Vectors::kKeep;
+    mbar_wait(m.bar + stage, static_cast<uint32_t>(k >> 1) & 1);
+    clean = block_step(m, row, masks, m.win + ((windows_swept - 1) & 1) * win_bytes,
+                       m.s2 + stage * wk.seg_max, seg, vectors,
+                       wk.out + static_cast<long>(cur.q) * 5 * wk.noff_pad, wk.noff_pad,
+                       cur.t, cur.whole, cur.first(), tally);
+    full = seg == kSegB;
     cur.next(wk);
   }
+  tally.add_to(wk.counters);
 }
 
-// The even split of a launch of these shapes: the work, the grid (no more
-// warps than units), the dynamic shared bytes per block and the resident
-// blocks per SM.
+// The even split of a launch of these shapes: the work, the grid (a block a
+// worker, no more workers than units), the dynamic shared bytes per block
+// and the resident blocks per SM.
 template <bool kShared>
 cudaError_t plan_work(int l2p, int noff_pad, int b, Work* wk, int* blocks,
                       size_t* smem, int* per_sm) {
@@ -250,20 +245,23 @@ cudaError_t plan_work(int l2p, int noff_pad, int b, Work* wk, int* blocks,
   wk->upi = l2p <= kSegB ? 1 : l2p / kFlush;
   wk->unit = l2p / wk->upi;
   wk->seg_max = min(l2p, kSegB);
-  wk->units = static_cast<long>(noff_pad / kGranule) * b * wk->upi;
-  *smem = kTableBytes + kWarps * static_cast<size_t>(warp_bytes(wk->seg_max));
+  wk->units = static_cast<long>((noff_pad + kGranule - 1) / kGranule) * b * wk->upi;
+  *smem = block_bytes(wk->seg_max);
   int dev = 0, sms = 0;
   cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+  if ((err = cudaFuncSetAttribute(sweep_batched_kernel<kShared>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  block_bytes(kSegB))) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            per_sm, sweep_batched_kernel<kShared>, kThreads, *smem)) != cudaSuccess) {
     return err;
   }
   if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = static_cast<int>(min(static_cast<long>(sms) * *per_sm,
-                                 (wk->units + kWarps - 1) / kWarps));
-  const long workers = static_cast<long>(*blocks) * kWarps;
+  *per_sm = min(*per_sm, kBlocksPerSm);
+  *blocks = static_cast<int>(min(static_cast<long>(sms) * *per_sm, wk->units));
+  const long workers = *blocks;
   // a worker counts its units in an int
   if ((wk->units + workers - 1) / workers > INT_MAX) return cudaErrorInvalidValue;
   return cudaSuccess;
@@ -285,8 +283,8 @@ long split_items(const Work& wk, long workers, bool any) {
 
 template <bool kShared>
 int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
-           void* out, int noff_pad, int b, void* stream) {
-  if (b <= 0 || noff_pad <= 0 || noff_pad % kGranule != 0 || l2p <= 0 ||
+           void* out, int noff_pad, int b, void* counters, void* stream) {
+  if (b <= 0 || noff_pad <= 0 || noff_pad % kPad != 0 || l2p <= 0 ||
       l2p % kFlush != 0 || l1k != noff_pad + l2p) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -302,9 +300,10 @@ int launch(const void* c1, int l1k, const void* c2, int l2p, const void* code,
   wk.c1 = static_cast<const uint8_t*>(c1);
   wk.c2 = static_cast<const uint8_t*>(c2);
   wk.out = static_cast<int32_t*>(out);
+  wk.counters = static_cast<unsigned long long*>(counters);
   wk.l1k = l1k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split_items(wk, static_cast<long>(blocks) * kWarps, true)) {
+  if (split_items(wk, blocks, true)) {
     // counts start at 0, maxranks at -1 (all bytes 0xff)
     const size_t row = sizeof(int32_t) * static_cast<size_t>(noff_pad);
     if ((err = cudaMemsetAsync(out, 0, 5 * row * b, s)) != cudaSuccess ||
@@ -326,24 +325,25 @@ extern "C" {
 // c1 (B, l1k).  Launches on `stream`; returns cudaGetLastError().
 int psa_sweep_batched_launch(const void* c1, int l1k, const void* c2, int l2p,
                              const void* code, void* out, int noff_pad, int b,
-                             void* stream) {
-  return launch<false>(c1, l1k, c2, l2p, code, out, noff_pad, b, stream);
+                             void* counters, void* stream) {
+  return launch<false>(c1, l1k, c2, l2p, code, out, noff_pad, b, counters, stream);
 }
 
 // The same for B queries sharing the one Seq1 row c1 (l1k,).
 int psa_sweep_batched_shared_launch(const void* c1, int l1k, const void* c2,
                                     int l2p, const void* code, void* out,
-                                    int noff_pad, int b, void* stream) {
-  return launch<true>(c1, l1k, c2, l2p, code, out, noff_pad, b, stream);
+                                    int noff_pad, int b, void* counters,
+                                    void* stream) {
+  return launch<true>(c1, l1k, c2, l2p, code, out, noff_pad, b, counters, stream);
 }
 
 // The split a launch of these shapes takes on the current device:
-// plan[0..7] = resident blocks per SM, blocks, warp workers, items, units,
+// plan[0..7] = resident blocks per SM, blocks, workers (blocks), items, units,
 // the most units one worker takes, items shared between workers, dynamic
 // shared bytes per block.
 int psa_sweep_batched_plan(int l2p, int noff_pad, int b, int shared,
                            long long* plan) {
-  if (b <= 0 || noff_pad <= 0 || noff_pad % kGranule != 0 || l2p <= 0 ||
+  if (b <= 0 || noff_pad <= 0 || noff_pad % kPad != 0 || l2p <= 0 ||
       l2p % kFlush != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -354,7 +354,7 @@ int psa_sweep_batched_plan(int l2p, int noff_pad, int b, int shared,
       shared ? plan_work<true>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm)
              : plan_work<false>(l2p, noff_pad, b, &wk, &blocks, &smem, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long workers = static_cast<long>(blocks) * kWarps;
+  const long workers = blocks;
   const long long v[8] = {per_sm, blocks, workers, wk.units / wk.upi, wk.units,
                           (wk.units + workers - 1) / workers,
                           split_items(wk, workers, false), static_cast<long long>(smem)};

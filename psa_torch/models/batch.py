@@ -65,9 +65,9 @@ from psa_torch.ops.epilogue import (TOPK, epilogue_pack,
                                     unpack_epilogue_outputs)
 from psa_torch.ops.select import band_candidates, pick_rows, select_best
 from psa_torch.ops.sweep import (batched_plan, bucket_shape, offset_stats,
-                                 plan_bucket, plan_shapes, sweep,
-                                 sweep_batched, sweep_batched_shared,
-                                 upload_codes)
+                                 plan_bucket, plan_shapes, rank_counters,
+                                 rank_passes_pm, sweep, sweep_batched,
+                                 sweep_batched_shared, upload_codes)
 from psa_torch.utils import spans
 
 __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
@@ -80,13 +80,15 @@ __all__ = ["TOPK", "f32_band_epsilon", "exact_topk_epilogue_rows",
 
 
 def run_exact(c1d: torch.Tensor, c2d: torch.Tensor, noff: int,
-              dtabs: DeviceTables, k: int = TOPK):
+              dtabs: DeviceTables, k: int = TOPK,
+              counters: torch.Tensor | None = None):
     """Device half of one query: the sweep's stats5 -> the top-k epilogue
     and pack (ops/epilogue.epilogue_pack: the kernel on the card).
     Returns (packed (1, 6k+2) int32, stats5 (5, noff_pad)); both stay on
-    the device."""
+    the device.  The sweep adds its threshold passes and steps to
+    `counters` (`ops/sweep.rank_counters`) when given."""
     with spans.span("launch"):
-        stats5 = sweep(c1d, c2d, dtabs.code)
+        stats5 = sweep(c1d, c2d, dtabs.code, counters)
         return (epilogue_pack(stats5[None], dtabs, noff, c2d.shape[0], k),
                 stats5)
 
@@ -127,31 +129,66 @@ def search_exact(codes1: np.ndarray, codes2: np.ndarray, dtabs: DeviceTables,
     codes1, codes2 = np.asarray(codes1), np.asarray(codes2)
     noff, _, l2p, l1k = plan_shapes(codes1.shape[0], codes2.shape[0])
     c1d, c2d = upload_codes(dtabs.code.device, (codes1, l1k), (codes2, l2p))
-    packed, stats5 = run_exact(c1d, c2d, noff, dtabs, k)
+    counters = recorded_counters(dtabs.code.device)
+    packed, stats5 = run_exact(c1d, c2d, noff, dtabs, k, counters)
+    counts = fetch_counters(counters)
     # host selection's re-score reads int32 codes: cast while the card sweeps
     codes1 = codes1.astype(np.int32, copy=False)
     codes2 = codes2.astype(np.int32, copy=False)
-    with spans.span("fetch_wait"):
+    with spans.span("fetch_wait") as sp:
         buf = packed.cpu().numpy()
+        set_rank_passes(sp, counts)
     return host_select(codes1, codes2, noff, dtabs.tables, buf, stats5, k)
 
 
 # --- the batch path ---------------------------------------------------------
 
 def fused_stats5_from_codes(c1b: torch.Tensor, c2b: torch.Tensor,
-                            code: torch.Tensor) -> torch.Tensor:
+                            code: torch.Tensor,
+                            counters: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """(B, 5, noff_pad) int32 stats of B queries in one batched sweep:
     rows 0-3 class counts, row 4 maxrank.  c1b (B, l1k), c2b (B, l2p)
-    uint8; the kernel writes this layout itself."""
-    return sweep_batched(c1b, c2b, code)
+    uint8; the kernel writes this layout itself (`counters` as in
+    `run_exact`)."""
+    return sweep_batched(c1b, c2b, code, counters)
 
 
 def fused_stats5_from_codes_shared(c1: torch.Tensor, c2b: torch.Tensor,
-                                   code: torch.Tensor) -> torch.Tensor:
+                                   code: torch.Tensor,
+                                   counters: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
     """`fused_stats5_from_codes` for B queries sharing the one Seq1 row c1
     (l1k,): bit-identical to it on B broadcast copies, through the kernel
     that stages each Seq1 window once for a group of queries."""
-    return sweep_batched_shared(c1, c2b, code)
+    return sweep_batched_shared(c1, c2b, code, counters)
+
+
+def recorded_counters(device) -> torch.Tensor | None:
+    """`ops/sweep.rank_counters` for a launch on `device` while the span
+    recorder is on, else None: a run without the recorder allocates,
+    copies and waits for nothing of it."""
+    return rank_counters(device) if spans.recording() else None
+
+
+def fetch_counters(counters: torch.Tensor | None) -> torch.Tensor | None:
+    """Start the copy of `counters` to pinned host memory on the current
+    stream, after the launch that adds to them: complete once a fetch
+    enqueued after it is."""
+    if counters is None:
+        return None
+    host = torch.empty(counters.shape, dtype=counters.dtype, pin_memory=True)
+    host.copy_(counters, non_blocking=True)
+    return host
+
+
+def set_rank_passes(sp, counts: torch.Tensor | None) -> None:
+    """Set `rank_passes_pm` (1000 x the sweep's threshold passes a step) on
+    span `sp` from fetched counters, once the fetch has waited for them."""
+    if counts is not None:
+        pm = rank_passes_pm(counts.tolist())
+        if pm is not None:
+            sp.set(rank_passes_pm=pm)
 
 
 def microbatch_spans(b_n: int, mb: int) -> list:
@@ -176,7 +213,7 @@ def upload_rows(a: np.ndarray, device: torch.device):
 @functools.lru_cache(maxsize=1024)
 def balance_pm(l2p: int, noff_pad: int, b: int, shared: bool,
                device: torch.device) -> int:
-    """1000 x the mean warp worker's pairs over the longest worker's in a
+    """1000 x the mean worker's pairs over the longest worker's in a
     batched launch of these shapes on `device`, from its plan
     (`ops/sweep.batched_plan`: every unit holds the same pairs), cached per
     shape and device."""
@@ -187,13 +224,15 @@ def balance_pm(l2p: int, noff_pad: int, b: int, shared: bool,
 
 def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
                     noffd: torch.Tensor, dtabs: DeviceTables, k: int = TOPK,
-                    shared_s1: bool = False, fused: bool = True):
+                    shared_s1: bool = False, fused: bool = True,
+                    counters: torch.Tensor | None = None):
     """Device half of one microbatch: the stats5 (one batched launch; the
     shared-Seq1 kernel when c1d is one (l1k,) row; with fused=False one
     `sweep` launch per query, a cross-check path), then the top-k epilogue
     and pack of every row (ops/epilogue.epilogue_pack).  Returns the packed
     (n, 6k+2) int32 buffer on the device.  While the span recorder is on, a
-    batched launch on the card sets its `launch` span's `balance_pm`."""
+    batched launch on the card sets its `launch` span's `balance_pm`; the
+    batched sweeps add to `counters` as `run_exact`'s sweep does."""
     b, l2p = c2d.shape
     with spans.span("launch", rows=int(b), shared=int(shared_s1)) as sp:
         if ((shared_s1 or fused) and c2d.device.type == "cuda"
@@ -201,9 +240,10 @@ def run_exact_batch(c1d: torch.Tensor, c2d: torch.Tensor,
             sp.set(balance_pm=balance_pm(l2p, c1d.shape[-1] - l2p, b, shared_s1,
                                          c2d.device))
         if shared_s1:
-            stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code)
+            stats5 = fused_stats5_from_codes_shared(c1d, c2d, dtabs.code,
+                                                    counters)
         elif fused:
-            stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code)
+            stats5 = fused_stats5_from_codes(c1d, c2d, dtabs.code, counters)
         else:
             stats5 = torch.stack([sweep(c1d[r], c2d[r], dtabs.code)
                                   for r in range(b)])
@@ -219,23 +259,28 @@ class Fetch:
     out: torch.Tensor
     event: "torch.cuda.Event | None" = None
     keep: tuple = ()
+    counts: torch.Tensor | None = None      # `fetch_counters`' host copy
 
     def wait(self) -> np.ndarray:
-        with spans.span("fetch_wait"):
+        with spans.span("fetch_wait") as sp:
             if self.event is not None:
                 self.event.synchronize()
+            set_rank_passes(sp, self.counts)
             return self.out.numpy()
 
 
-def start_fetch(packed: torch.Tensor, keep: tuple = ()) -> Fetch:
-    """Start the device-to-host copy of `packed` without waiting for it."""
+def start_fetch(packed: torch.Tensor, keep: tuple = (),
+                counters: torch.Tensor | None = None) -> Fetch:
+    """Start the device-to-host copy of `packed` (and of the launch's
+    `counters`, when given) without waiting for it."""
     if packed.device.type == "cpu":
         return Fetch(packed, None, keep)
+    counts = fetch_counters(counters)
     out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
     out.copy_(packed, non_blocking=True)
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(packed.device))
-    return Fetch(out, event, keep + (packed,))
+    return Fetch(out, event, keep + (packed,), counts)
 
 
 _DISPATCH_WINDOW = 8
@@ -310,8 +355,11 @@ def _mesh_async(c1b, c2b, noffs, n2s, mesh_tabs: list, k: int, fused: bool,
                     else upload_rows(c1b[s:e], device))
         c2h, c2d = upload_rows(c2b[s:e], device)
         nh, nd = upload_rows(noffs[s:e], device)
-        packed = run_exact_batch(c1d, c2d, nd, dtabs, k, shared_s1, fused)
-        return s, e, dtabs, start_fetch(packed, (c1h, c1d, c2h, c2d, nh, nd))
+        counters = recorded_counters(device) if fused else None
+        packed = run_exact_batch(c1d, c2d, nd, dtabs, k, shared_s1, fused,
+                                 counters)
+        return s, e, dtabs, start_fetch(packed, (c1h, c1d, c2h, c2d, nh, nd),
+                                        counters)
 
     def dispatch(s: int, e: int) -> list:
         return [dispatch_block(bs, be, dt) for (bs, be), dt

@@ -13,14 +13,16 @@ epilogue reads, stats5 (5, noff_pad) int32: rows 0-3 the class counts, row
 4 the maxrank.
 
 `sweep` launches the hand-written Hopper kernel (csrc/sweep.cu: an even
-split of the (tile, 32-position) units over persistent warp workers, see
+split of the (tile, 32-position) units over persistent workers, see
 `sweep_plan`) for CUDA tensors and runs `sweep_plain` — the blocked gather
 of the JAX package's engine_xla, in torch — for CPU tensors.
 `sweep_batched` and `sweep_batched_shared` do the same for B queries at once
 and return stats5 (B, 5, noff_pad) (csrc/sweep_batched.cu: the same split
 over (tile, query) items, see `batched_split_plan`; plain versions
 `sweep_batched_plain` and `sweep_batched_shared_plain`).  Both kernels'
-offsets pad to whole warp tiles of TILE_O (`plan_shapes`, `plan_bucket`).
+offsets pad to whole TILE_O (`plan_shapes`, `plan_bucket`); their warp
+tiles are WARP_TILE offsets, a word of 32 a lane, and a last tile may
+reach past noff_pad.
 The kernel lab's tensor-core sweeps (csrc/sweep_mma.cu, csrc/sweep_mma_v3.cu)
 have their wrappers in ops/_sweep_v2.py and ops/_sweep_v3.py and are built
 into the same library.  A failed build or launch raises; nothing falls back to the plain
@@ -45,7 +47,8 @@ from psa_torch.core.tables import ScoringTables
 from psa_torch.ops.common import round_up
 from psa_torch.utils import spans
 
-TILE_O = 256     # offsets per warp tile (csrc/sweep_core.cuh kGranule)
+TILE_O = 256     # offsets pad to this (csrc/sweep_core.cuh kPad)
+WARP_TILE = 1024 # offsets per warp tile (csrc/sweep_core.cuh kGranule)
 L2_ALIGN = 32    # Seq2 padding granularity (csrc/sweep_core.cuh kFlush)
 SEG = 1024       # Seq2 positions per step of a worker (csrc/sweep_core.cuh kSegB)
 BUCKET_O = 1024  # offset granularity of search_batch's bucket keys
@@ -69,7 +72,7 @@ _lib = None
 
 def plan_shapes(n1: int, n2: int):
     """(noff, noff_pad, l2p, l1k) for a (n1, n2) query: Seq2 pads to the
-    kernel's flush granularity, the offsets to whole warp tiles, and Seq1
+    kernel's flush granularity, the offsets to whole TILE_O, and Seq1
     to cover every padded offset's full window."""
     noff = n1 - n2 + 1
     if noff <= 0:
@@ -90,7 +93,7 @@ def bucket_shape(n1: int, n2: int):
 
 def plan_bucket(noffs, l2p: int):
     """(noff_pad, l1k) of a bucket for the batched sweeps: the offsets pad
-    to the bucket's longest query in whole warp tiles (TILE_O), Seq1 to
+    to the bucket's longest query in whole TILE_O, Seq1 to
     cover every padded offset's full window."""
     noff_pad = round_up(int(np.max(noffs)), TILE_O)
     return noff_pad, noff_pad + l2p
@@ -185,17 +188,23 @@ def _build_and_load(sp) -> ctypes.CDLL:
                                + "\n".join(log))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for fn in (lib.psa_sweep_launch, lib.psa_sweep_v2_launch,
-               lib.psa_sweep_v3_launch):
+    for fn in (lib.psa_sweep_v2_launch, lib.psa_sweep_v3_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.psa_sweep_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    lib.psa_sweep_launch.restype = ctypes.c_int
     for fn in (lib.psa_sweep_batched_launch,
                lib.psa_sweep_batched_shared_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.psa_sweep_batched_plan.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,
@@ -203,7 +212,8 @@ def _build_and_load(sp) -> ctypes.CDLL:
     for fn in (lib.psa_sweep_plan, lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan):
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_longlong)]
-    for fn in (lib.psa_sweep_tile, lib.psa_sweep_align, lib.psa_sweep_seg,
+    for fn in (lib.psa_sweep_tile, lib.psa_sweep_warp_tile,
+               lib.psa_sweep_align, lib.psa_sweep_seg,
                lib.psa_sweep_mma_tile, lib.psa_sweep_mma_chunk,
                lib.psa_sweep_batched_plan, lib.psa_sweep_plan,
                lib.psa_sweep_v2_plan, lib.psa_sweep_v3_plan,
@@ -216,9 +226,9 @@ def _build_and_load(sp) -> ctypes.CDLL:
     lib.psa_epilogue_scratch_words.restype = ctypes.c_longlong
     lib.psa_error_string.argtypes = [ctypes.c_int]
     lib.psa_error_string.restype = ctypes.c_char_p
-    if ((lib.psa_sweep_tile(), lib.psa_sweep_align(), lib.psa_sweep_seg(),
-         lib.psa_sweep_mma_tile(), lib.psa_sweep_mma_chunk())
-            != (TILE_O, L2_ALIGN, SEG, MMA_TILE, MMA_CHUNK)):
+    if ((lib.psa_sweep_tile(), lib.psa_sweep_warp_tile(), lib.psa_sweep_align(),
+         lib.psa_sweep_seg(), lib.psa_sweep_mma_tile(), lib.psa_sweep_mma_chunk())
+            != (TILE_O, WARP_TILE, L2_ALIGN, SEG, MMA_TILE, MMA_CHUNK)):
         raise RuntimeError("csrc tile constants disagree with ops/sweep.py")
     return lib
 
@@ -327,24 +337,26 @@ def _even_split(items: int, upi: int, unit: int, workers: int,
 
 
 def sweep_plan(noff_pad: int, l2p: int, workers: int) -> dict:
-    """The even split of one `sweep` over `workers` warp workers, as
-    csrc/sweep.cu takes it.  The work is U = noff_pad / TILE_O * l2p /
-    L2_ALIGN units of (warp tile, L2_ALIGN positions of Seq2), tile-major;
+    """The even split of one `sweep` over `workers` workers, as
+    csrc/sweep.cu takes it.  The work is U = ceil(noff_pad / WARP_TILE) *
+    l2p / L2_ALIGN units of (warp tile, L2_ALIGN positions of Seq2),
+    tile-major (a last tile may reach past noff_pad);
     worker w takes the units [w U // W, (w + 1) U // W) and walks them in
     steps of at most SEG positions within one tile.  Returns units,
     per_worker (the most units one worker takes), split_tiles (tiles shared
     between workers, whose rows they add atomically) and steps: per worker
     (made as it is read), its steps as (tile, first position, positions,
     atomic, first step of the worker in the tile)."""
-    return _even_split(noff_pad // TILE_O, l2p // L2_ALIGN, L2_ALIGN, workers,
-                       "split_tiles")
+    return _even_split(-(-noff_pad // WARP_TILE), l2p // L2_ALIGN, L2_ALIGN,
+                       workers, "split_tiles")
 
 
 def batched_split_plan(b: int, noff_pad: int, l2p: int, workers: int) -> dict:
     """The even split of one batched launch (`sweep_batched`,
-    `sweep_batched_shared`) over `workers` warp workers, as
+    `sweep_batched_shared`) over `workers` workers, as
     csrc/sweep_batched.cu takes it.  An item is one (warp tile, query),
-    item i being query i % b of tile i // b; an item is one unit where
+    item i being query i % b of tile i // b (ceil(noff_pad / WARP_TILE)
+    tiles, the last one may reach past noff_pad); an item is one unit where
     Seq2 fits one step (l2p <= SEG: the items are the units, and a range
     of them sweeps one Seq1 window in the shared kernel), else l2p /
     L2_ALIGN units of L2_ALIGN positions.  Worker w takes the units [w U //
@@ -355,7 +367,7 @@ def batched_split_plan(b: int, noff_pad: int, l2p: int, workers: int) -> dict:
     per worker (made as it is read), its steps as (item, first position,
     positions, atomic, first step of the worker in the item)."""
     upi = 1 if l2p <= SEG else l2p // L2_ALIGN
-    items = noff_pad // TILE_O * b
+    items = -(-noff_pad // WARP_TILE) * b
     return dict(_even_split(items, upi, l2p // upi, workers, "split_items"),
                 items=items)
 
@@ -379,7 +391,8 @@ def sweep_launch_plan(l2p: int, noff_pad: int) -> dict:
 def batched_plan(l2p: int, noff_pad: int, b: int, shared: bool) -> dict:
     """The split a batched launch of these shapes takes on the current CUDA
     device (csrc/sweep_batched.cu psa_sweep_batched_plan): resident blocks
-    per SM, blocks, warp workers, items ((tile, query) pairs), units, the
+    per SM, blocks, workers (a block each), items ((tile, query) pairs),
+    units, the
     most units one worker takes, items shared between workers (> 0: the
     output is set first and their rows added atomically), shared bytes per
     block.  `batched_split_plan` with its workers gives the same items,
@@ -395,17 +408,18 @@ def batched_plan(l2p: int, noff_pad: int, b: int, shared: bool) -> dict:
 
 
 def launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
-           code: torch.Tensor, out_shape: tuple, *batch: int):
+           code: torch.Tensor, out_shape: tuple, *extra):
     """Run the kernel behind C entry point `entry` on c1's device and
-    current stream into a new int32 `out_shape` tensor; `batch` is the
-    batched entry points' B."""
+    current stream into a new int32 `out_shape` tensor; `extra` are the
+    entry point's arguments between the output's width and the stream (the
+    batched sweeps' B, the offset sweeps' counters pointer)."""
     lib = build_library()
     out = torch.empty(out_shape, dtype=torch.int32, device=c1.device)
     with torch.cuda.device(c1.device):
         stream = torch.cuda.current_stream(c1.device).cuda_stream
         err = getattr(lib, entry)(c1.data_ptr(), c1.shape[-1], c2.data_ptr(),
                                   c2.shape[-1], code.data_ptr(),
-                                  out.data_ptr(), out_shape[-1], *batch,
+                                  out.data_ptr(), out_shape[-1], *extra,
                                   stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: "
@@ -413,15 +427,41 @@ def launch(entry: str, c1: torch.Tensor, c2: torch.Tensor,
     return out
 
 
-def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+def rank_counters(device) -> torch.Tensor | None:
+    """A zeroed (2,) int64 buffer on `device` that a sweep launch given it
+    as `counters` adds [threshold passes, steps] to (each worker once,
+    at its end): passes over steps is 1 where every offset of a tile met
+    the table's top rank in every step.  None off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
+def _pointer(t: torch.Tensor | None):
+    """A tensor's device address for a C entry point; None (null) for no
+    tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def rank_passes_pm(counts) -> int | None:
+    """1000 x threshold passes a step from a fetched `rank_counters`
+    buffer ([passes, steps]); None before any step."""
+    passes, steps = (int(x) for x in counts)
+    return round(1000 * passes / steps) if steps else None
+
+
+def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor,
+          counters: torch.Tensor | None = None) -> torch.Tensor:
     """(5, noff_pad) int32 stats5 of one query: rows 0-3 the class counts,
     row 4 the maxrank.
 
     c1: (noff_pad + l2p,) uint8 codes; c2: (l2p,) uint8 codes; code: (32, 32)
     int8 fused table; noff_pad a multiple of TILE_O.  CUDA tensors go
     through the Hopper kernel (replacing _sweep_kernel and the maxrank
-    conversion), which needs 16-byte aligned operands; CPU tensors through
-    `sweep_plain`."""
+    conversion), which needs 16-byte aligned operands and adds its
+    threshold passes and steps to `counters` (`rank_counters`) when given;
+    CPU tensors through `sweep_plain`."""
     global launches
     noff_pad, _ = check_single(c1, c2, code)
     if c1.device.type == "cpu":
@@ -429,20 +469,22 @@ def sweep(c1: torch.Tensor, c2: torch.Tensor, code: torch.Tensor) -> torch.Tenso
     if c1.device.type != "cuda":
         raise ValueError(f"no sweep for device {c1.device}")
     _check_aligned(c1=c1, c2=c2)
-    out = launch("psa_sweep_launch", c1, c2, code, (5, noff_pad))
+    out = launch("psa_sweep_launch", c1, c2, code, (5, noff_pad),
+                 _pointer(counters))
     launches += 1
     return out
 
 
 def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
-                  code: torch.Tensor) -> torch.Tensor:
+                  code: torch.Tensor,
+                  counters: torch.Tensor | None = None) -> torch.Tensor:
     """(B, 5, noff_pad) int32 stats5 of B queries, each with its own Seq1
     row: rows 0-3 the class counts, row 4 the maxrank.  c1b (B, noff_pad +
     l2p) and c2b (B, l2p) uint8, PAD_CODE past each sequence; noff_pad a
     multiple of TILE_O.  CUDA tensors go through the Hopper kernel
     (replacing _sweep_kernel_batched and the maxrank conversion), which
-    needs 16-byte aligned operands; CPU tensors through
-    `sweep_batched_plain`."""
+    needs 16-byte aligned operands (`counters` as in `sweep`); CPU tensors
+    through `sweep_batched_plain`."""
     global launches_batched
     b, noff_pad = _check_batched(c1b, c2b, code, shared=False)
     if c1b.device.type == "cpu":
@@ -451,13 +493,14 @@ def sweep_batched(c1b: torch.Tensor, c2b: torch.Tensor,
         raise ValueError(f"no sweep for device {c1b.device}")
     _check_aligned(c1b=c1b, c2b=c2b)
     out = launch("psa_sweep_batched_launch", c1b, c2b, code,
-                 (b, 5, noff_pad), b)
+                 (b, 5, noff_pad), b, _pointer(counters))
     launches_batched += 1
     return out
 
 
 def sweep_batched_shared(c1: torch.Tensor, c2b: torch.Tensor,
-                         code: torch.Tensor) -> torch.Tensor:
+                         code: torch.Tensor,
+                         counters: torch.Tensor | None = None) -> torch.Tensor:
     """(B, 5, noff_pad) int32: `sweep_batched` for B queries that share the
     one Seq1 row c1 (noff_pad + l2p,); equal to `sweep_batched` on B
     broadcast copies of it.  CUDA tensors go through the Hopper kernel
@@ -471,7 +514,7 @@ def sweep_batched_shared(c1: torch.Tensor, c2b: torch.Tensor,
         raise ValueError(f"no sweep for device {c1.device}")
     _check_aligned(c1=c1, c2b=c2b)
     out = launch("psa_sweep_batched_shared_launch", c1, c2b, code,
-                 (b, 5, noff_pad), b)
+                 (b, 5, noff_pad), b, _pointer(counters))
     launches_batched_shared += 1
     return out
 

@@ -75,10 +75,11 @@ def oracle(n1: int, n2: int):
 
 
 # Pairs one thread handles in an iteration of a kernel's main loop:
-# csrc/sweep_core.cuh's sweep_step, in sweep.cu and sweep_batched.cu (kFlush
-# positions x kOffsetsPerThread offsets), and the lab's v2 and v3
-# (csrc/sweep_mma.cu, csrc/sweep_mma_v3.cu: kChunk positions of one offset).
-LOOP_PAIRS = {"sweep_kernel": 32 * 8, "sweep_batched_kernel": 32 * 8,
+# csrc/sweep_core.cuh's main_pass, in sweep.cu and sweep_batched.cu (a chunk
+# of kFlush = 32 positions x the 32 offsets of a lane's word), and the lab's
+# v2 and v3 (csrc/sweep_mma.cu, csrc/sweep_mma_v3.cu: kChunk positions of
+# one offset).
+LOOP_PAIRS = {"sweep_kernel": 32 * 32, "sweep_batched_kernel": 32 * 32,
               "sweep_mma_kernel": 64, "sweep_v3_kernel": 64}
 # Kernels whose main loop sits inside a persistent loop over work items:
 # their main loop is the widest of the loops that hold no other loop.

@@ -199,6 +199,11 @@ def enable(on: bool = True) -> bool:
     return was
 
 
+def recording() -> bool:
+    """Whether the recorder is on (`span()` then records)."""
+    return _on
+
+
 def records() -> list:
     """The ring's closed spans as `Record`s, in the order they closed (a
     snapshot)."""

@@ -89,8 +89,8 @@ def test_one_batched_sweep_per_shard(shared, monkeypatch):
     name = "sweep_batched_shared" if shared else "sweep_batched"
     real = getattr(batch, name)
     monkeypatch.setattr(batch, name,
-                        lambda c1, c2b, code: calls.append((c2b.shape[0], str(code.device)))
-                        or real(c1, c2b, code))
+                        lambda c1, c2b, code, counters=None: calls.append(
+                            (c2b.shape[0], str(code.device))) or real(c1, c2b, code, counters))
     assert batch.search_batch(qs, mesh=["cpu"] * 4) == want
     assert calls == [(2, "cpu"), (2, "cpu"), (2, "cpu")]
 

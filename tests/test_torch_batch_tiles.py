@@ -212,10 +212,10 @@ def test_search_batch_keeps_the_buckets_of_plan_shapes(monkeypatch):
                                       key[2])[0] for key, v in buckets.items())
     seen = []
     real_rows, real_shared = batch.sweep_batched, batch.sweep_batched_shared
-    monkeypatch.setattr(batch, "sweep_batched", lambda c1, c2, code: seen.append(
-        c1.shape[-1] - c2.shape[1]) or real_rows(c1, c2, code))
-    monkeypatch.setattr(batch, "sweep_batched_shared", lambda c1, c2, code: seen.append(
-        c1.shape[-1] - c2.shape[1]) or real_shared(c1, c2, code))
+    monkeypatch.setattr(batch, "sweep_batched", lambda c1, c2, code, counters=None: seen.append(
+        c1.shape[-1] - c2.shape[1]) or real_rows(c1, c2, code, counters))
+    monkeypatch.setattr(batch, "sweep_batched_shared", lambda c1, c2, code, counters=None: seen.append(
+        c1.shape[-1] - c2.shape[1]) or real_shared(c1, c2, code, counters))
     got = batch.search_batch(qs, device="cpu")
     assert sorted(seen) == want_pads and len(seen) == len(buckets) == 5
     assert any(p % sw.BUCKET_O for p in seen)

@@ -20,11 +20,12 @@ from psa_torch.core.alphabet import HYPHEN_CODE, OTHER_CODE, PAD_CODE
 from psa_torch.core.tables import build_tables
 from psa_torch.ops import sweep as sw
 
-# Warp workers of the batched kernels on an H100, as their plans report
-# them: 7 resident blocks of 4 warps on 132 SMs (the per-row kernel) and 6
-# (the shared-Seq1 kernel).
-H100_WORKERS = 3696
-H100_WORKERS_6 = 3168
+# Workers of the batched kernels on an H100, as their plans report them: 4
+# resident two-warp blocks on 132 SMs (both kernels: two warps a
+# scheduler); and the 3,696 one-warp workers of the table route before
+# them, a finer split of the same units.
+H100_WORKERS = 528
+FINE_WORKERS = 3696
 
 # (b, n1, n2) of the benchmark's batch cells at several queries a launch,
 # of the batch workload, and of the split's edges.
@@ -54,7 +55,7 @@ def check_worker(plan, b, l2p, workers, w, seen=None):
         assert p0 % sw.L2_ALIGN == 0 and p0 + seg <= l2p            # one item
         t = item // b
         # every copy is a multiple of 16 bytes from a 16-byte boundary
-        assert (t * sw.TILE_O + p0) % 16 == 0 and (sw.TILE_O + seg) % 16 == 0
+        assert (t * sw.WARP_TILE + p0) % 16 == 0 and (sw.WARP_TILE + seg) % 16 == 0
         assert first == (u == begin or p0 == 0)
         assert atomic == (not (begin <= i0 and i0 + upi <= end))
         if atomic:
@@ -71,7 +72,7 @@ def check_plan(b, noff_pad, l2p, workers, walk=None):
     returns the plan."""
     plan = sw.batched_split_plan(b, noff_pad, l2p, workers)
     upi = 1 if l2p <= sw.SEG else l2p // sw.L2_ALIGN
-    items = noff_pad // sw.TILE_O * b
+    items = -(-noff_pad // sw.WARP_TILE) * b
     assert (plan["items"], plan["units"]) == (items, items * upi)
     assert plan["per_worker"] == math.ceil(plan["units"] / workers)
     assert len(plan["steps"]) == workers
@@ -97,7 +98,7 @@ def check_plan(b, noff_pad, l2p, workers, walk=None):
     return plan
 
 
-@pytest.mark.parametrize("workers", [H100_WORKERS, H100_WORKERS_6])
+@pytest.mark.parametrize("workers", [H100_WORKERS, FINE_WORKERS])
 @pytest.mark.parametrize("case", sorted(SHAPES))
 def test_plan_covers_every_unit_once(case, workers):
     b, n1, n2 = SHAPES[case]
@@ -110,17 +111,17 @@ def test_plan_covers_every_unit_once(case, workers):
     plan = check_plan(b, noff_pad, l2p, workers, walk)
     mean = plan["units"] / workers
     if big:
-        # 1368 tiles of 7813 units a query: within one unit of the mean
-        assert plan["units"] == b * 1368 * 7813
+        # 342 tiles of 7813 units a query: within one unit of the mean
+        assert plan["units"] == b * 342 * 7813
         assert plan["per_worker"] - mean < 1
         assert 1000 * mean / plan["per_worker"] > 999.9
         assert plan["split_items"] > 0
     if case == "cell_b4" and workers == H100_WORKERS:
-        assert plan["per_worker"] == 11_568
+        assert plan["per_worker"] == 20_243
     if case == "batch_workload":
-        # the same whole-item chunks as before: 7168 items, 1 or 2 a worker
-        assert plan["units"] == plan["items"] == 7168
-        assert plan["per_worker"] == (2 if workers == H100_WORKERS else 3)
+        # whole-item chunks: 2 tiles a query, 2048 items, up to 4 a worker
+        assert plan["units"] == plan["items"] == 2048
+        assert plan["per_worker"] == (4 if workers == H100_WORKERS else 1)
     if case == "noff_1":
         assert plan["units"] == 5 and sum(1 for s in plan["steps"] if s) == 5
     if case == "one_query_one_tile":
@@ -138,8 +139,8 @@ def test_plan_invariants_drawn(b, tiles, upt, workers):
 
 def run_plan(c1, c2b, code, workers):
     """The kernels' writes, in numpy: each step's stats5 (from the plain
-    gather over its tile's offsets and its positions) stored, added or
-    added atomically, as csrc/sweep_batched.cu writes them.  c1 is (B,
+    gather over its tile's offsets inside noff_pad and its positions)
+    stored, added or added atomically, as csrc/sweep_batched.cu writes them.  c1 is (B,
     l1k) or, for the shared kernel, one (l1k,) row."""
     b, l2p = c2b.shape
     noff_pad = c1.shape[-1] - l2p
@@ -150,12 +151,13 @@ def run_plan(c1, c2b, code, workers):
     for mine in plan["steps"]:
         for item, p0, seg, atomic, first in mine:
             q, t = item % b, item // b
-            o0 = t * sw.TILE_O
+            o0 = t * sw.WARP_TILE
+            width = min(sw.WARP_TILE, noff_pad - o0)    # a last tile's part
             row = c1 if c1.dim() == 1 else c1[q]
             part = sw.stats5_from_sweep(sw.sweep_rows_plain(
-                row[o0 + p0: o0 + p0 + sw.TILE_O + seg], c2b[q, p0: p0 + seg],
+                row[o0 + p0: o0 + p0 + width + seg], c2b[q, p0: p0 + seg],
                 code)).numpy()
-            cols = slice(o0, o0 + sw.TILE_O)
+            cols = slice(o0, o0 + width)
             if first and not atomic:
                 out[q, :, cols] = part
             else:
@@ -219,7 +221,7 @@ def test_balance_pm_reads_the_launch_plan(monkeypatch):
     assert batch.balance_pm(l2p, noff_pad, 4, False, "cuda:0") == 1000
     assert batch.balance_pm(l2p, noff_pad, 4, False, "cuda:0") == 1000
     assert batch.balance_pm(512, 1792, 1024, True, "cuda:0") == round(
-        1000 * 7168 / (H100_WORKERS * 2))
+        1000 * 2048 / (H100_WORKERS * 4))
     assert asked == [(l2p, noff_pad, 4, False), (512, 1792, 1024, True)]
     batch.balance_pm.cache_clear()
 

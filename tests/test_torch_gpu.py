@@ -340,8 +340,9 @@ def test_batched_kernels_match_plain(cuda, b, n1, n2, other, ragged):
 
 
 def warp_slots(cuda, l2p):
-    """The warp workers a batched launch with Seq2 rows of l2p holds."""
-    return sw.batched_plan(l2p, sw.TILE_O, 1, False)["blocks_per_sm"] * 4 * (
+    """The workers a batched launch with Seq2 rows of l2p holds (a block
+    each)."""
+    return sw.batched_plan(l2p, sw.TILE_O, 1, False)["blocks_per_sm"] * (
         torch.cuda.get_device_properties(cuda).multi_processor_count)
 
 
@@ -357,7 +358,7 @@ def test_batched_kernels_at_edge_shapes(cuda, case):
     rng = np.random.default_rng(len(case))
     b, n1, n2 = {"noff_1": (5, 300, 300), "noff_multiple_of_tile": (7, 967, 200),
                  "b_1": (1, 3000, 500), "b_not_multiple_of_slots": (1111, 1000, 300),
-                 "seq2_segments": (warp_slots(cuda, 1120) // 4 + 5, 2123, 1100),
+                 "seq2_segments": (warp_slots(cuda, 1120) + 5, 2123, 1100),
                  "seq2_split": (2, 5000, 4000)}[case]
     c1b, c2b = batch_rows(rng, b, n1, n2, False, False)
     plan = sw.batched_plan(c2b.shape[1], c1b.shape[1] - c2b.shape[1], b, False)
@@ -406,6 +407,87 @@ def test_batched_kernels_at_the_cell_shape(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(shared, broadcast)
+
+
+# Both kernels against their plain versions where the bit-sliced loop has
+# its edges: B = 1-8 per-row and shared, long Seq2 whose items are shared
+# between workers (atomics), a last warp tile reaching past noff_pad,
+# steps that carry their columns over, the maximum mode, weights with other
+# ranks, and all-'A' rows that meet no top rank and take the lower
+# threshold passes.  (b, n1, n2, weights, is_max, letters)
+BITSLICED_EDGES = {
+    "b1_long": (1, 40_000, 9000, (1.0, 3.0, 4.0, 2.0), False, "lenient"),
+    "b2_max": (2, 20_000, 5000, (1.0, 3.0, 4.0, 2.0), True, "lenient"),
+    "b3_partial_tile": (3, 3500, 1100, (2.0, 1.0, 1.0, 1.0), False, "uniform"),
+    "b5_weights": (5, 9000, 2048, (-2.0, 1e6, 1e-7, 0.0), True, "uniform"),
+    "b8_short": (8, 2000, 700, (1.0, 3.0, 4.0, 2.0), False, "lenient"),
+    "b4_all_A": (4, 6000, 2100, (1.0, 3.0, 4.0, 2.0), False, "all_A"),
+    "b6_all_A_max": (6, 2600, 1056, (1.0, 3.0, 4.0, 2.0), True, "all_A"),
+    "b7_seq2_32": (7, 1500, 32, (1.0, 3.0, 4.0, 2.0), False, "uniform"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BITSLICED_EDGES))
+def test_bitsliced_kernels_at_their_edges(cuda, case):
+    """All three kernels integer-equal to their plain versions (stats5, all
+    5 rows): the batched ones on the case's B rows, `sweep` on the first."""
+    b, n1, n2, w, is_max, letters = BITSLICED_EDGES[case]
+    rng = np.random.default_rng(len(case) + b)
+    l2p = sw.plan_shapes(n1, n2)[2]
+    _, l1k = sw.plan_bucket([n1 - n2 + 1], l2p)
+    c1b = np.full((b, l1k), PAD_CODE, np.uint8)
+    c2b = np.full((b, l2p), PAD_CODE, np.uint8)
+    for q in range(b):
+        if letters == "all_A":
+            continue
+        c1b[q, :n1] = codes(rng, n1, letters == "lenient")
+        c2b[q, :n2] = codes(rng, n2, letters == "lenient")
+    if letters == "all_A":
+        c1b[:, :n1], c2b[:, :n2] = 0, 0
+    code = torch.from_numpy(build_tables(np.array(w), is_max).code).to(cuda)
+    d1 = torch.from_numpy(c1b).to(cuda)
+    d2 = torch.from_numpy(c2b).to(cuda)
+    got = sw.sweep_batched(d1, d2, code)
+    shared = sw.sweep_batched_shared(d1[0].contiguous(), d2, code)
+    one = sw.sweep(d1[0].contiguous(), d2[0].contiguous(), code)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sw.sweep_batched_plain(d1, d2, code))
+    assert torch.equal(shared, sw.sweep_batched_shared_plain(d1[0].contiguous(),
+                                                             d2, code))
+    assert torch.equal(one, sw.sweep_plain(d1[0].contiguous(),
+                                           d2[0].contiguous(), code))
+
+
+@pytest.mark.parametrize("letters", ["uniform", "all_A"])
+def test_rank_passes_pm_on_the_card(cuda, letters):
+    """`rank_passes_pm`, set on the single and batch paths' `fetch_wait`
+    spans while the recorder is on: 1000 (one pass a step) on uniform
+    letters at the benchmark cells' 600,000 x 250,000, above 1000 where no
+    offset meets the top rank (all 'A' in the maximum mode, whose 'A'-'A'
+    pair ranks below the table's top)."""
+    from psa_torch.utils import spans
+
+    n1, n2 = (600_000, 250_000) if letters == "uniform" else (200_000, 2048)
+    seqs = (("A" * n1, "A" * n2) if letters == "all_A"
+            else random_sequences(n1, n2, seed=24))
+    w, is_max = [1.0, 3.0, 4.0, 2.0], letters == "all_A"
+    spans.clear()
+    AlignmentSearchEngine(w, is_max, device=cuda).search(*seqs)
+    batch.search_batch([Query(w, *seqs, is_max)] * 2, device=cuda)
+    pms = [r.attrs["rank_passes_pm"] for r in spans.records()
+           if r.name == "fetch_wait" and "rank_passes_pm" in r.attrs]
+    assert len(pms) == 2
+    if letters == "uniform":
+        assert pms == [1000, 1000]
+    else:
+        assert min(pms) > 1000
+    was = spans.enable(False)
+    try:
+        spans.clear()
+        AlignmentSearchEngine(w, is_max, device=cuda).search(*seqs)
+        assert spans.records() == []
+    finally:
+        spans.enable(was)
 
 
 def test_batched_kernels_refuse_misaligned_rows(cuda):

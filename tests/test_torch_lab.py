@@ -280,7 +280,8 @@ def test_sass_loop_mix_reads_the_main_loop():
 def test_sass_loop_mix_takes_the_batched_pair_loop():
     """The batched kernel's pair loop sits inside its persistent loop over
     work items, beside the mbarrier wait loop: the widest loop that holds
-    no other is taken, and its pairs are kFlush x 8."""
+    no other is taken, and its pairs are kFlush x 32 (a run of kFlush
+    positions against a lane's word of 32 offsets)."""
     ns = "_GLOBAL__N__71c8276e_16_sweep_batched_cu_c09359e6"
     name = f"_ZN{len(ns)}{ns}20sweep_batched_kernelILb0EEEvNS_4WorkEPKa"
     sass = f"""
@@ -298,5 +299,5 @@ def test_sass_loop_mix_takes_the_batched_pair_loop():
 """
     got = kernel_lab.sass_loop_mix(sass)["sweep_batched_kernel<false>"]
     assert got["instructions"] == 4 and got["segments"] == [4]
-    assert got["per_pair"] == 4 / (sw.L2_ALIGN * 8)
+    assert got["per_pair"] == 4 / (sw.L2_ALIGN * 32)
     assert got["mix"] == {"LDS": 1, "IADD3": 1, "VIMNMX.U32": 1, "BRA": 1}

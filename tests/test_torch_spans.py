@@ -202,6 +202,38 @@ def test_off_is_a_shared_no_op():
     assert [s.name for s in spans.records()] == ["on"]
 
 
+def test_recording_follows_enable():
+    assert spans.recording() is True
+    was = spans.enable(False)
+    try:
+        assert spans.recording() is False
+    finally:
+        spans.enable(was)
+    assert spans.recording() is True
+
+
+@pytest.mark.parametrize("counts,want", [((5, 5), 1000), ((7, 4), 1750),
+                                         ((3, 2), 1500), ((0, 0), None)])
+def test_rank_passes_pm_from_fetched_counters(counts, want):
+    """[threshold passes, steps] as a launch leaves them: 1000 x passes a
+    step on the `fetch_wait` span, nothing before any step."""
+    assert sw.rank_passes_pm(counts) == want
+    spans.clear()
+    with spans.span("fetch_wait") as sp:
+        batch.set_rank_passes(sp, torch.tensor(counts, dtype=torch.int64))
+    assert spans.records()[-1].attrs == ({} if want is None
+                                         else {"rank_passes_pm": want})
+
+
+def test_no_rank_counters_off_the_card():
+    assert sw.rank_counters("cpu") is None
+    assert batch.recorded_counters(torch.device("cpu")) is None
+    assert batch.fetch_counters(None) is None
+    with spans.span("fetch_wait") as sp:
+        batch.set_rank_passes(sp, None)
+    assert spans.records()[-1].attrs == {}
+
+
 def test_annotations_only_inside_a_profile(tmp_path, monkeypatch):
     from torch.profiler import ProfilerActivity, profile
 
@@ -406,7 +438,8 @@ def test_build_library_marks_a_build(monkeypatch, tmp_path):
     nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
                     '  if [ "$1" = -o ]; then : > "$2"; fi; shift\ndone\n')
     nvcc.chmod(0o755)
-    consts = {"psa_sweep_tile": sw.TILE_O, "psa_sweep_align": sw.L2_ALIGN,
+    consts = {"psa_sweep_tile": sw.TILE_O, "psa_sweep_warp_tile": sw.WARP_TILE,
+              "psa_sweep_align": sw.L2_ALIGN,
               "psa_sweep_seg": sw.SEG, "psa_sweep_mma_tile": sw.MMA_TILE,
               "psa_sweep_mma_chunk": sw.MMA_CHUNK}
 
